@@ -1,0 +1,166 @@
+"""Siamese MLP network as an ``nn.Module``.
+
+The counterpart of ``abnet3_tpu/models/siamese.py``. The two siamese
+branches share weights, so ``forward(x1, x2)`` concatenates both inputs
+into one ``(2N, d)`` batch and runs one pass through the tower.
+``save_network``/``load_network`` keep the ``<output_path><epoch>.pth``
+naming (reference model.py:204-208) and write the same npz payload as the
+JAX package (params ``layer_i/{w,b,bn_scale,bn_bias}``, state
+``bn_i/{mean,var}``), so either package loads the other's files.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from abnet3_torch.nn import Tower, TowerSpec
+from abnet3_torch.serialize import load_pytree, save_pytree
+from abnet3_torch.utils import resolve_device
+from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+
+__all__ = ["NetworkBuilder", "SiameseNetwork"]
+
+
+class NetworkBuilder(nn.Module):
+    """Generic network interface (reference model.py:30-79).
+
+    Parameters are created uninitialised, like the JAX package's
+    ``params = None``: :meth:`ensure_init` draws them from a seed unless a
+    load filled them first."""
+
+    def __init__(self):
+        super().__init__()
+        self._initialised = False
+        self._generator = None
+
+    def forward_once(self, x, weights=None):
+        raise NotImplementedError(
+            "Unimplemented forward_once for class:", self.__class__.__name__)
+
+    def whoami(self):
+        return {"params": {k: v for k, v in self.__dict__.items()
+                           if not k.startswith("_") and k != "training"},
+                "class_name": self.__class__.__name__}
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        raise NotImplementedError(
+            "Unimplemented reset_parameters for class:",
+            self.__class__.__name__)
+
+    def ensure_init(self, seed: int = 0) -> None:
+        """Initialise the parameters from ``seed`` (drawn on the CPU, so
+        the weights do not depend on the device) unless they are already
+        set, and seed the dropout generator on the network's device."""
+        if not self._initialised:
+            self.reset_parameters(torch.Generator().manual_seed(seed))
+            self._initialised = True
+        if self._generator is None:
+            self._generator = torch.Generator(
+                device=self.device).manual_seed(seed)
+
+    # -- parameter persistence ------------------------------------------
+    def save_network(self, epoch=""):
+        assert self.output_path is not None, "output_path not set"
+        assert self._initialised, "network not initialised"
+        params, state = to_jax_numpy(self)
+        save_pytree(self.output_path + str(epoch) + ".pth",
+                    {"params": params, "state": state},
+                    meta={"class_name": self.__class__.__name__})
+
+    def load_network(self, network_path=None):
+        tree, _ = load_pytree(network_path)
+        load_jax_numpy(self, tree["params"], tree.get("state", {}))
+
+
+class SiameseNetwork(NetworkBuilder):
+    """Weight-shared MLP tower pair (reference model.py:82-208).
+
+    Block structure per layer: Linear -> Dropout -> [BatchNorm] ->
+    activation, with a configurable last-layer nonlinearity ("default" =
+    same as hidden, None = linear output). Dims are
+    ``input_dim -> hidden_dim -> (num_hidden_layers x hidden_dim) ->
+    output_dim``. ``device`` defaults to the card (see
+    :func:`abnet3_torch.utils.resolve_device`).
+    """
+
+    def __init__(self, input_dim=None, num_hidden_layers=None,
+                 hidden_dim=None, output_dim=None, p_dropout=0.1,
+                 batch_norm=False, type_init="xavier_uni",
+                 activation_layer=None, output_path=None,
+                 last_non_linearity="default", compute_dtype="float32",
+                 device=None):
+        super().__init__()
+        assert activation_layer in ("relu", "sigmoid", "tanh", "softmax")
+        assert type_init in ("xavier_uni", "xavier_normal", "orthogonal")
+        assert isinstance(input_dim, int), "input dim should be int"
+        assert isinstance(hidden_dim, int), "hidden dim should be int"
+        assert isinstance(num_hidden_layers, int)
+        assert isinstance(output_dim, int), "output dim should be int"
+        if compute_dtype != "float32":
+            raise NotImplementedError(
+                "abnet3_torch runs the towers in float32 only "
+                f"(compute_dtype={compute_dtype!r})")
+
+        self.input_dim = input_dim
+        self.num_hidden_layers = num_hidden_layers
+        self.hidden_dim = hidden_dim
+        self.output_dim = output_dim
+        self.p_dropout = p_dropout
+        self.activation_layer = activation_layer
+        self.batch_norm = batch_norm
+        self.type_init = type_init
+        self.last_non_linearity = last_non_linearity
+        self.output_path = output_path
+        self.compute_dtype = compute_dtype
+
+        if last_non_linearity == "default":
+            last_act: Optional[str] = activation_layer
+        else:
+            last_act = last_non_linearity  # a name, or None for linear
+
+        dims = ([input_dim, hidden_dim]
+                + [hidden_dim] * num_hidden_layers
+                + [output_dim])
+        acts = [activation_layer] * (1 + num_hidden_layers) + [last_act]
+        self.tower = Tower(TowerSpec(
+            dims, acts, p_dropout=p_dropout, batch_norm=batch_norm,
+            type_init=type_init, gain_activation=activation_layer),
+            device=resolve_device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.tower.layers[0].w.device
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.tower.reset_parameters(generator)
+
+    def forward_once(self, x, weights=None):
+        """One branch (used by the embedder and the matrix-mode step)."""
+        return self.tower(x, weights=weights, generator=self._generator)
+
+    def forward(self, x1, x2, weights=None):
+        """Fused siamese forward: both branches in one pass. With
+        batch_norm this normalises over the union of the two branches
+        (see the JAX package's note); ``weights`` marks valid rows."""
+        n = x1.shape[0]
+        w = torch.cat([weights, weights]) if weights is not None else None
+        out = self.forward_once(torch.cat([x1, x2]), weights=w)
+        return out[:n], out[n:]
+
+    def whoami(self):
+        return {"params": {
+            "input_dim": self.input_dim,
+            "num_hidden_layers": self.num_hidden_layers,
+            "hidden_dim": self.hidden_dim,
+            "output_dim": self.output_dim,
+            "p_dropout": self.p_dropout,
+            "batch_norm": self.batch_norm,
+            "type_init": self.type_init,
+            "activation_layer": self.activation_layer,
+            "last_non_linearity": self.last_non_linearity,
+            "output_path": self.output_path,
+            "compute_dtype": str(self.compute_dtype),
+        }, "class_name": self.__class__.__name__}

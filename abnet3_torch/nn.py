@@ -1,0 +1,192 @@
+"""MLP towers: stacks of Linear -> Dropout -> [BatchNorm] -> activation.
+
+The counterpart of ``abnet3_tpu/nn.py`` as ``nn.Module``s. Each block keeps
+its weight ``w`` as an (in, out) parameter, exactly as the JAX package
+stores it (``jnp.dot(x, w)``), so weights cross between the packages with
+no transpose. Batch norm is written out rather than taken from
+``nn.BatchNorm1d`` because it is *weighted*: padded rows of the ragged
+device batches carry weight 0 and stay out of the statistics, and the
+unbiased running variance uses the weight sum (``abnet3_tpu/nn.py:237-261``).
+
+Weight init follows torch semantics: xavier_uniform / xavier_normal /
+orthogonal with ``calculate_gain(activation)`` (reference model.py:25-27,
+172-177), drawn from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+__all__ = ["ACTIVATIONS", "calculate_gain", "Dense", "Tower", "TowerSpec"]
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    None: lambda x: x,
+}
+
+
+def calculate_gain(nonlinearity: Optional[str]) -> float:
+    """torch.nn.init.calculate_gain for the supported set."""
+    if nonlinearity == "relu":
+        return math.sqrt(2.0)
+    if nonlinearity == "tanh":
+        return 5.0 / 3.0
+    # sigmoid / softmax / linear
+    return 1.0
+
+
+def _xavier_uniform(w: torch.Tensor, gain: float, generator) -> None:
+    fan_in, fan_out = w.shape
+    a = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    w.uniform_(-a, a, generator=generator)
+
+
+def _xavier_normal(w: torch.Tensor, gain: float, generator) -> None:
+    fan_in, fan_out = w.shape
+    std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+    w.normal_(0.0, std, generator=generator)
+
+
+def _orthogonal(w: torch.Tensor, gain: float, generator) -> None:
+    nn.init.orthogonal_(w, gain=gain, generator=generator)
+
+
+INITS = {
+    "xavier_uni": _xavier_uniform,
+    "xavier_normal": _xavier_normal,
+    "orthogonal": _orthogonal,
+}
+
+
+class TowerSpec:
+    """Static description of one MLP tower.
+
+    ``dims`` is the full dimension chain [in, h1, ..., out]; ``activations``
+    has one entry per layer (None = identity, used for
+    last_non_linearity=None, reference model.py:161-166).
+    """
+
+    def __init__(self, dims: Sequence[int],
+                 activations: Sequence[Optional[str]],
+                 p_dropout: float = 0.0, batch_norm: bool = False,
+                 type_init: str = "xavier_uni",
+                 gain_activation: Optional[str] = None):
+        assert len(activations) == len(dims) - 1
+        self.dims = list(dims)
+        self.activations = list(activations)
+        self.p_dropout = float(p_dropout)
+        self.batch_norm = bool(batch_norm)
+        self.type_init = type_init
+        # torch applies one gain (from the main activation) to every layer
+        # (reference model.py:172-177)
+        self.gain_activation = gain_activation
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.dims) - 1
+
+
+class Dense(nn.Module):
+    """One block's parameters: ``w`` (in, out), ``b``, and with batch norm
+    ``bn_scale``/``bn_bias`` plus the running ``bn_mean``/``bn_var``
+    buffers. Created uninitialised; :meth:`Tower.reset_parameters` or a
+    weight load fills them."""
+
+    def __init__(self, in_dim: int, out_dim: int, batch_norm: bool,
+                 device=None):
+        super().__init__()
+        kw = dict(device=device, dtype=torch.float32)
+        self.w = nn.Parameter(torch.empty(in_dim, out_dim, **kw))
+        self.b = nn.Parameter(torch.zeros(out_dim, **kw))
+        if batch_norm:
+            self.bn_scale = nn.Parameter(torch.ones(out_dim, **kw))
+            self.bn_bias = nn.Parameter(torch.zeros(out_dim, **kw))
+            self.register_buffer("bn_mean", torch.zeros(out_dim, **kw))
+            self.register_buffer("bn_var", torch.ones(out_dim, **kw))
+
+
+class Tower(nn.Module):
+    """MLP tower; ``forward`` runs in train or eval mode after
+    ``self.training`` (batch statistics and dropout only in training)."""
+
+    def __init__(self, spec: TowerSpec, device=None,
+                 bn_momentum: float = 0.1, bn_eps: float = 1e-5):
+        super().__init__()
+        self.spec = spec
+        self.bn_momentum = bn_momentum
+        self.bn_eps = bn_eps
+        self.layers = nn.ModuleList(
+            Dense(spec.dims[i], spec.dims[i + 1], spec.batch_norm, device)
+            for i in range(spec.num_layers))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Fresh init in place (parameters keep their identity, so an
+        optimizer built on them stays valid)."""
+        gain = calculate_gain(self.spec.gain_activation)
+        init = INITS[self.spec.type_init]
+        for layer in self.layers:
+            # draw on the generator's device, then copy: the same seed
+            # gives the same weights whatever device the tower lives on
+            w = torch.empty(layer.w.shape, dtype=torch.float32,
+                            device=generator.device)
+            init(w, gain, generator)
+            layer.w.copy_(w)
+            layer.b.zero_()
+            if self.spec.batch_norm:
+                layer.bn_scale.fill_(1.0)
+                layer.bn_bias.zero_()
+                layer.bn_mean.zero_()
+                layer.bn_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, weights: torch.Tensor = None,
+                generator: torch.Generator = None) -> torch.Tensor:
+        """``weights`` (N,) marks valid rows: padded frames of ragged
+        device batches stay out of the batch-norm statistics (the
+        reference never pads, so its BN only ever sees real frames).
+        ``generator`` draws the dropout masks."""
+        spec = self.spec
+        drop = self.training and spec.p_dropout > 0.0
+        for i, layer in enumerate(self.layers):
+            x = x @ layer.w + layer.b
+            if drop:
+                keep = 1.0 - spec.p_dropout
+                mask = torch.rand(x.shape, generator=generator,
+                                  device=x.device) < keep
+                x = torch.where(mask, x / keep, 0.0)
+            if spec.batch_norm:
+                if self.training:
+                    mean, var, unbiased = self._batch_stats(x, weights)
+                    m = self.bn_momentum
+                    with torch.no_grad():
+                        layer.bn_mean.mul_(1 - m).add_(m * mean)
+                        layer.bn_var.mul_(1 - m).add_(m * unbiased)
+                else:
+                    mean, var = layer.bn_mean, layer.bn_var
+                x = ((x - mean) * torch.rsqrt(var + self.bn_eps)
+                     * layer.bn_scale + layer.bn_bias)
+            x = ACTIVATIONS[spec.activations[i]](x)
+        return x
+
+    @staticmethod
+    def _batch_stats(x: torch.Tensor, weights: Optional[torch.Tensor]):
+        """(mean, biased var, unbiased var) over the rows, weighted by
+        ``weights`` when given."""
+        if weights is not None:
+            w = weights[:, None]
+            wsum = torch.clamp(weights.sum(), min=1.0)
+            mean = (x * w).sum(0) / wsum
+            var = (w * (x - mean) ** 2).sum(0) / wsum
+            return mean, var, var * wsum / torch.clamp(wsum - 1.0, min=1.0)
+        mean = x.mean(0)
+        var = x.var(0, unbiased=False)
+        n = x.shape[0]
+        return mean, var, var * n / max(n - 1, 1)
