@@ -6,11 +6,13 @@ the ``tests/test_torch_*.py`` parity tests. It imports ``torch`` and never
 ``jax`` or anything of ``abnet3_tpu``: what it needs of that package's
 host modules (``serialize``, ``io/h5f``, ``utils``) it keeps as copies.
 
-Entry points (``TrainerSiamese``, ``SiameseNetwork``, ``TokenBank`` and the
-loader's bank) run on the card unless the caller asks for the CPU with
-``device="cpu"`` (or ``cuda=False`` on the trainer); without a card they
-raise. The one hand-written kernel, the DTW path mask, is CUDA C++ in
-``csrc/dtw_path.cu``, built with ``nvcc`` at first use.
+Entry points (``TrainerSiamese``, ``SiameseNetwork``, ``TokenBank``, the
+loader's bank, ``EmbedderSiamese`` and ``eval.abx.evaluate``) run on the
+card unless the caller asks for the CPU with ``device="cpu"`` (or
+``cuda=False`` on the trainer and the embedder); without a card they
+raise. The hand-written kernels, the DTW path mask (training) and the DTW
+path statistics (ABX distances), are CUDA C++ in ``csrc/``, built with
+``nvcc`` at first use.
 
 Submodules are imported by their users; this file re-exports nothing.
 """

@@ -4,15 +4,20 @@ The counterpart of ``abnet3_tpu/ops/dtw.py`` for the matrix-mode train
 step:
 
 1. :func:`pairwise_angular_distance` computes all B cost matrices with one
-   batched matmul (angular cosine distance, reference utils.py:40-60).
+   batched matmul (angular cosine distance, reference utils.py:40-60);
+   :func:`pairwise_kl_distance` is the posteriorgram metric. Their anchor
+   forms (:func:`anchor_angular_distance_rows`,
+   :func:`anchor_kl_distance_rows`) score ONE token against a block in the
+   (T1, B, T2) rows layout of the ABX tiles.
 2. :func:`dtw_costs`, :func:`moves_from_costs` and
    :func:`onpath_from_moves` are the plain twins of the DTW path-mask
    kernel: the DP cost tensor, its argmin moves (3=diag, 2=up, 1=left;
    ties go diag, then up), and the mask of the cells the backtrace from
    (n1-1, n2-1) visits.
-3. :func:`dtw_path_from_dist` dispatches: a CUDA tensor goes to the
-   hand-written kernel (:mod:`abnet3_torch.ops.cuda_dtw`), a CPU tensor to
-   the plain twins.
+3. :func:`dtw_path_from_dist` (path mask), :func:`dtw_path_stats` and
+   :func:`dtw_path_stats_rows` (path sum and length) dispatch: a CUDA
+   tensor goes to the hand-written kernels
+   (:mod:`abnet3_torch.ops.cuda_dtw`), a CPU tensor to their plain twins.
 
 :func:`dtw_costs` runs the recurrence ``D[i,j] = d[i,j] + min(up, left,
 diag)`` one anti-diagonal at a time, so each cell is one float32 add of
@@ -26,12 +31,15 @@ masks agree exactly on the tested inputs, ties included).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["pairwise_angular_distance", "dtw_costs", "moves_from_costs",
-           "onpath_from_moves", "dtw_path_from_dist", "align_diff_batch"]
+__all__ = ["pairwise_angular_distance", "unit_frames",
+           "anchor_angular_distance_rows",
+           "pairwise_kl_distance", "anchor_kl_distance_rows", "dtw_costs",
+           "moves_from_costs", "onpath_from_moves", "dtw_path_from_dist",
+           "dtw_path_stats", "dtw_path_stats_rows", "align_diff_batch"]
 
 # the "no neighbour" cost of the boundary cells, as in the JAX package
 _BIG = 1e30
@@ -59,6 +67,81 @@ def pairwise_angular_distance(x: torch.Tensor, y: torch.Tensor
     d = torch.where(zx[:, :, None] | zy[:, None, :], 1.0, d)
     d = torch.where(zx[:, :, None] & zy[:, None, :], 0.0, d)
     return d
+
+
+def unit_frames(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frames scaled to unit norm, in float64, and the mask of zero-norm
+    frames (which stay zero): (..., d) -> ((..., d) float64, (...) bool)."""
+    y = y.double()
+    n = torch.sqrt(torch.sum(y * y, dim=-1))
+    zero = n == 0.0
+    return y / torch.where(zero, 1.0, n)[..., None], zero
+
+
+def anchor_angular_distance_rows(
+        xa: torch.Tensor, y: torch.Tensor,
+        y_unit: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+) -> torch.Tensor:
+    """Angular distance of ONE anchor against a token block in the rows
+    layout: xa (T1, d), y (B, T2, d) -> (T1, B, T2) float32.
+
+    The cells of ``pairwise_angular_distance(broadcast(xa), y)``
+    transposed, from one matmul whose output is already the layout the
+    stats kernel reads (no anchor broadcast, no transpose). The cosines
+    come from unit frames in float64, rounded once to float32 before the
+    arccos: near-parallel frames (cosines within 1e-4 of 1, as a
+    briefly trained tower emits) put arccos's slope at 40 and more, and
+    float32 dot products summed in another order (cuBLAS vs the CPU)
+    then differ by several u16 codec steps; float64 makes the card and
+    the CPU agree. ``y_unit``, :func:`unit_frames` of ``y``, may be
+    passed by a caller that scores many anchors against one block. The
+    float32 tail runs in place on one (T1, B, T2) buffer."""
+    xu, zx = unit_frames(xa)                            # (T1, d), (T1,)
+    yu, zy = unit_frames(y) if y_unit is None else y_unit
+    T1, (B, T2, dim) = xu.shape[0], yu.shape
+    d = torch.mm(xu, yu.reshape(B * T2, dim).t()).view(T1, B, T2).float()
+    d.clamp_(-1.0, 1.0).arccos_().div_(math.pi)
+    d.masked_fill_(zx[:, None, None] | zy[None], 1.0)
+    d.masked_fill_(zx[:, None, None] & zy[None], 0.0)
+    return d
+
+
+def _distributions(x: torch.Tensor, eps: float):
+    """Frames clipped at ``eps`` and renormalised, and their logs."""
+    p = torch.clamp(x.float(), min=eps)
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    return p, torch.log(p)
+
+
+def pairwise_kl_distance(x: torch.Tensor, y: torch.Tensor,
+                         eps: float = 1e-10) -> torch.Tensor:
+    """Batched symmetrised KL divergence between posteriorgram frames:
+    x (B, T1, d), y (B, T2, d) -> (B, T1, T2) with
+    d[i, j] = 0.5 * (KL(p_i || q_j) + KL(q_j || p_i)), ABXpy's ``dtw_kl``
+    frame metric. Rows are clipped at ``eps`` and renormalised first, so
+    zero padding rows become uniform and the logs are finite."""
+    p, logp = _distributions(x, eps)
+    q, logq = _distributions(y, eps)
+    self_p = torch.sum(p * logp, dim=-1)                # (B, T1)
+    self_q = torch.sum(q * logq, dim=-1)                # (B, T2)
+    cross_pq = torch.einsum("bik,bjk->bij", p, logq)
+    cross_qp = torch.einsum("bik,bjk->bij", logp, q)
+    return 0.5 * ((self_p[:, :, None] - cross_pq)
+                  + (self_q[:, None, :] - cross_qp))
+
+
+def anchor_kl_distance_rows(xa: torch.Tensor, y: torch.Tensor,
+                            eps: float = 1e-10) -> torch.Tensor:
+    """The anchor form of :func:`pairwise_kl_distance`: xa (T1, d),
+    y (B, T2, d) -> (T1, B, T2), the rows layout of the stats kernel."""
+    p, logp = _distributions(xa, eps)
+    q, logq = _distributions(y, eps)
+    self_p = torch.sum(p * logp, dim=-1)                # (T1,)
+    self_q = torch.sum(q * logq, dim=-1)                # (B, T2)
+    cross_pq = torch.einsum("ik,bjk->ibj", p, logq)
+    cross_qp = torch.einsum("ik,bjk->ibj", logp, q)
+    return 0.5 * ((self_p[:, None, None] - cross_pq)
+                  + (self_q[None] - cross_qp))
 
 
 def dtw_costs(dist: torch.Tensor) -> torch.Tensor:
@@ -155,6 +238,41 @@ def dtw_path_from_dist(dist: torch.Tensor, n1: torch.Tensor,
                                       n1.to(torch.int32).contiguous(),
                                       n2.to(torch.int32).contiguous())
     return cuda_dtw.dtw_path_plain(dist, n1, n2)
+
+
+def _last_dim_contiguous(dist: torch.Tensor) -> torch.Tensor:
+    """float32 with unit stride along the last dimension (what the stats
+    kernel reads through its strides), copying only when needed."""
+    dist = dist.float()
+    return dist if dist.stride(-1) == 1 else dist.contiguous()
+
+
+def dtw_path_stats(dist: torch.Tensor, n1: torch.Tensor,
+                   n2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(path_sum, path_len) of the DTW backtrace path of each pair: dist
+    (B, T1, T2), n1/n2 (B,) true lengths -> two (B,) float32. path_sum is
+    the DP cost at (n1-1, n2-1), the sum of ``dist`` along the path;
+    path_len its exact integer length. A CUDA tensor runs the
+    hand-written kernel, a CPU tensor the plain version."""
+    from abnet3_torch.ops import cuda_dtw
+    if dist.is_cuda:
+        return cuda_dtw.dtw_path_stats_cuda(
+            _last_dim_contiguous(dist), n1.to(torch.int32).contiguous(),
+            n2.to(torch.int32).contiguous())
+    return cuda_dtw.dtw_path_stats_plain(dist, n1, n2)
+
+
+def dtw_path_stats_rows(dist_rows: torch.Tensor, n1: torch.Tensor,
+                        n2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dtw_path_stats` of a (T1, B, T2) rows-layout tensor (the
+    ABX tile row: one anchor against B column tokens). The kernel reads
+    it in place; the plain version through a transposed view."""
+    from abnet3_torch.ops import cuda_dtw
+    if dist_rows.is_cuda:
+        return cuda_dtw.dtw_path_stats_cuda(
+            _last_dim_contiguous(dist_rows), n1.to(torch.int32).contiguous(),
+            n2.to(torch.int32).contiguous(), rows=True)
+    return cuda_dtw.dtw_path_stats_plain(dist_rows.permute(1, 0, 2), n1, n2)
 
 
 def align_diff_batch(n1: torch.Tensor, n2: torch.Tensor, T1: int, T2: int,

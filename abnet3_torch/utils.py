@@ -1,7 +1,7 @@
 """Host-side utilities: pair-file parsing, feature access, device choice.
 
-A copy of the parts of ``abnet3_tpu/utils.py`` that the training slice
-uses, with the same file formats and semantics, plus
+A copy of the parts of ``abnet3_tpu/utils.py`` that the training and
+evaluation slices use, with the same file formats and semantics, plus
 :func:`resolve_device`, which every entry point of the port uses to pick
 its device.
 """
@@ -13,8 +13,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["read_dataset", "group_pairs", "Features_Accessor", "read_feats",
-           "resolve_device"]
+__all__ = ["read_spkid_file", "read_dataset", "group_pairs",
+           "Features_Accessor", "read_feats", "resolve_device"]
 
 
 def resolve_device(device=None, cuda: bool = True) -> torch.device:
@@ -34,6 +34,21 @@ def resolve_device(device=None, cuda: bool = True) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def read_spkid_file(spkid_file: str) -> Dict[str, str]:
+    """Parse a ``fid spkid`` mapping file (reference utils.py:23-31)."""
+    spk: Dict[str, str] = {}
+    with open(spkid_file, "r") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            fid, spkid = line.split(" ")
+            if fid in spk:
+                raise ValueError(f"duplicate file id '{fid}' in {spkid_file}")
+            spk[fid] = spkid
+    return spk
 
 
 def read_dataset(dataset_file: str) -> List[Tuple]:

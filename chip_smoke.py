@@ -4,25 +4,44 @@ proof that it still starts on the card).
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device: requires CUDA (exits non-zero without it), turns TF32 off;
-2. build: compiles ``abnet3_torch/csrc/dtw_path.cu`` with nvcc for sm_90a;
+2. build: compiles both kernels (``abnet3_torch/csrc/*.cu``) with nvcc
+   for sm_90a, one nvcc per source, all at once, and prints each one's
+   ptxas registers and spills;
 3. kernel: the CUDA DTW path-mask kernel against its plain PyTorch version
    on the card, at the flagship shapes, on tie-heavy integer inputs, a
    non-square shape and a bucket past the shared-memory guard; masks must
    be exactly equal and their path lengths equal to a host walk's;
-4. main_path: the flagship recipe (``examples/experiment.yaml``: token
+4. kernel_stats: the CUDA DTW path-stats kernel against its plain version
+   on the card, in the (T1, B, T2) rows layout of the ABX tiles (at
+   B=1024 and T=96, 64, 32, non-square, long) and the (B, T1, T2)
+   layout of the pair stream, on angular and tie-heavy integer inputs
+   with ragged lengths (1 and T among them): path lengths and path sums
+   must be bit-equal;
+5. main_path: the flagship recipe (``examples/experiment.yaml``: token
    bank + split batches, SiameseNetwork 280->500->500->500->100 sigmoid,
    coscos2, adadelta lr 0.1, batch 64, steps_per_call 8) trained for 2
    epochs through ``TrainerSiamese.train()`` on a synthetic corpus made
    from a seed; the losses must be finite, the kernel's launch count must
    equal the number of steps, the ``.pth`` must reload into an equal
    network, and one step on the card must agree with the CPU path;
-5. timing: CUDA-event times of the kernel, its plain version and one full
-   train step;
-6. profile: ``torch.profiler`` over 10 train steps: kernel time by group,
-   launches per step and the device's busy share.
+6. eval_path: the trained network embeds the corpus through
+   ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
+   inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from the
+   embeddings goes through ``distance_matrix`` (dtw_cos, tiles of 1,024:
+   10 tiles, one stats-kernel launch per row, 10,240 in all) and
+   ``abx_error`` (across); the matrix must be symmetric with a zero
+   diagonal, and on 128 tokens the card and the CPU (plain version) must
+   agree within 2 u16 steps, their ABX errors within 1e-3. The card's
+   eval path runs in memory: the machine with the card has no h5py, so
+   ``embed()``/``evaluate()``'s file layer is held against the JAX
+   package by the CPU tests;
+7. timing: CUDA-event times of both kernels, their plain versions, one
+   full train step and one whole ABX tile row;
+8. profile: ``torch.profiler`` over 10 train steps and over one ABX tile
+   of 1,024 rows: device time by group, launches and the busy share.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line the ``ok`` object. Any failure raises
@@ -89,11 +108,15 @@ def phase_device():
 
 def phase_build():
     from abnet3_torch.ops import cuda_dtw
+    t0 = time.perf_counter()
     info = cuda_dtw.build(verbose=True)
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": info["seconds"],
-          "compiled": info["compiled"], "ptxas": ptxas})
+    seconds = time.perf_counter() - t0
+    for name, one in info.items():
+        ptxas = [ln.strip() for ln in one["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": name, "seconds": one["seconds"],
+              "compiled": one["compiled"], "ptxas": ptxas})
+    emit({"phase": "build", "all_seconds": seconds})
 
 
 def angular_inputs(gen, B, T1, T2, dim=280):
@@ -160,6 +183,61 @@ def phase_kernel():
     return max_err
 
 
+def stats_inputs(gen, kind, layout, T1, B, T2, dim=100):
+    """Distances for the stats kernel on the card: angular distances of
+    random frames or tie-heavy integers in {0, 1, 2}, in the (T1, B, T2)
+    rows layout or the (B, T1, T2) layout; ragged lengths with 1 and T."""
+    from abnet3_torch.ops.dtw import pairwise_angular_distance
+    if kind == "ties":
+        dist = torch.randint(0, 3, (B, T1, T2), generator=gen,
+                             device="cuda").float()
+    else:
+        dist = pairwise_angular_distance(
+            torch.randn(B, T1, dim, generator=gen, device="cuda"),
+            torch.randn(B, T2, dim, generator=gen, device="cuda"))
+    if layout == "rows":
+        dist = dist.permute(1, 0, 2).contiguous()
+    n1 = torch.randint(1, T1 + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    n2 = torch.randint(1, T2 + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    n1[0], n2[0] = T1, T2
+    n1[1], n2[1] = 1, T2
+    n1[2], n2[2] = T1, 1
+    return dist, n1, n2
+
+
+def phase_kernel_stats():
+    """The stats kernel against its plain version, bit for bit."""
+    from abnet3_torch.ops.cuda_dtw import (dtw_path_stats_cuda,
+                                           dtw_path_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [("rows", 96, 1024, 96), ("rows", 64, 1024, 64),
+             ("rows", 32, 1024, 32), ("rows", 96, 64, 40),
+             ("rows", 512, 64, 512), ("batch", 96, 64, 96)]
+    max_err = 0.0
+    for layout, T1, B, T2 in cases:
+        for kind in ("angular", "ties"):
+            dist, n1, n2 = stats_inputs(gen, kind, layout, T1, B, T2)
+            rows = layout == "rows"
+            psum_p, plen_p = dtw_path_stats_plain(
+                dist.permute(1, 0, 2) if rows else dist, n1, n2)
+            psum, plen = dtw_path_stats_cuda(dist, n1, n2, rows=rows)
+            torch.cuda.synchronize()
+            err = max(float((psum - psum_p).abs().max()),
+                      float((plen - plen_p).abs().max()))
+            shape = [T1, B, T2] if rows else [B, T1, T2]
+            emit({"phase": "kernel_stats", "layout": layout, "input": kind,
+                  "shape": shape, "max_abs_diff": err,
+                  "mean_path_len": float(plen.mean())})
+            if not (torch.equal(plen, plen_p) and torch.equal(psum, psum_p)):
+                raise AssertionError(
+                    f"stats kernel differs from the plain version at "
+                    f"{layout} {kind} {shape}")
+            max_err = max(max_err, err)
+    return max_err
+
+
 def synthetic_corpus(seed, n_files=40, frames=3000, dim=280, n_tokens=2000,
                      n_pairs=8000, dev_share=0.2):
     """Random stacked-fbank-sized features and word pairs (half same,
@@ -197,7 +275,7 @@ def flagship_network(output_path=None, device=None):
 def phase_main_path():
     from abnet3_torch.dataloader import OriginalDataLoader
     from abnet3_torch.loss import coscos2
-    from abnet3_torch.ops.cuda_dtw import dtw_path_cuda
+    from abnet3_torch.ops.cuda_dtw import dtw_path_cuda, dtw_path_stats_cuda
     from abnet3_torch.parallel import make_split_pair_train_step
     from abnet3_torch.trainer import TrainerSiamese
     from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
@@ -227,13 +305,14 @@ def phase_main_path():
         return run_step(b, do_training)
     trainer._run_step = counted
 
-    dtw_path_cuda.launches = 0
+    dtw_path_cuda.launches = dtw_path_stats_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dtw_path_cuda.launches
+    stats_launches = dtw_path_stats_cuda.launches
     trainer._run_step = run_step
 
     losses = trainer.train_losses + trainer.dev_losses
@@ -278,11 +357,119 @@ def phase_main_path():
           "bank_shape": list(loader.token_bank.bank.shape),
           "train_pairs": len(pairs["train"]), "dev_pairs": len(pairs["dev"]),
           "steps": steps["n"], "dtw_launches": launches,
+          "stats_launches": stats_launches,
           "train_losses": trainer.train_losses,
           "dev_losses": trainer.dev_losses,
           "setup_s": setup_s, "train_s": train_s,
           "eval_step_card": v_gpu, "eval_step_cpu": v_cpu})
     return trainer, loader, launches
+
+
+def eval_inventory(embedded, seed=1, n_classes=512, per_class=8,
+                   files_per_speaker=4):
+    """4,096 tokens of 20-96 frames cut from the embedded files: 512
+    classes of 8 tokens, the speaker of a token that of its file."""
+    rng = np.random.RandomState(seed)
+    tokens, speakers = {}, []
+    for k in range(n_classes * per_class):
+        f = rng.randint(len(embedded))
+        n = rng.randint(20, 97)
+        s = rng.randint(0, len(embedded[f]) - n)
+        tokens[k] = embedded[f][s:s + n]
+        speakers.append(f // files_per_speaker)
+    labels = np.repeat(np.arange(n_classes), per_class)
+    return tokens, labels, np.asarray(speakers)
+
+
+def phase_eval_path(network, features, batch_size=5000, n_classes=512,
+                    block=1024):
+    """Embed -> distance matrix -> ABX score, in memory, on the card.
+    ``n_classes`` x 8 tokens, ``block`` tokens per tile side."""
+    from abnet3_torch.embedder import EmbedderSiamese
+    from abnet3_torch.eval.abx import abx_error, distance_matrix
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.ops.cuda_dtw import dtw_path_cuda, dtw_path_stats_cuda
+
+    names = sorted(features.features, key=lambda f: int(f[1:]))
+    feats = [features.features[f] for f in names]
+    n_frames = sum(len(f) for f in feats)
+    emb = EmbedderSiamese(network=network, batch_size=batch_size)
+    emb._load()
+    forward = emb._forward_fn()
+    dtw_path_cuda.launches = dtw_path_stats_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embedded = emb._embed_corpus(forward, feats)
+    embed_s = time.perf_counter() - t0
+    if [e.shape for e in embedded] != [(len(f), 100) for f in feats] or \
+            not all(np.isfinite(e).all() for e in embedded):
+        raise AssertionError("embeddings of the wrong shape or not finite")
+
+    tokens, labels, speakers = eval_inventory(embedded, n_classes=n_classes)
+    bank = TokenBank(tokens)
+    N = len(bank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D = distance_matrix(bank, "dtw_cos", batch_size=block)
+    dist_s = time.perf_counter() - t0
+    launches = dtw_path_stats_cuda.launches
+    path_launches = dtw_path_cuda.launches
+    side = -(-N // block)
+    n_tiles = side * (side + 1) // 2
+    if launches != n_tiles * block:
+        raise AssertionError(f"{launches} stats-kernel launches, expected "
+                             f"{n_tiles * block}")
+    if not (np.array_equal(D, D.T) and not np.diag(D).any()
+            and np.isfinite(D).all() and D.min() >= 0 and D.max() <= 1):
+        raise AssertionError("the distance matrix is not a symmetric "
+                             "[0, 1] matrix with a zero diagonal")
+    t0 = time.perf_counter()
+    score = abx_error(D, labels, speakers, task="across")
+    score_s = time.perf_counter() - t0
+    if not math.isfinite(score["error"]) or score["n_cells"] == 0:
+        raise AssertionError(f"ABX score {score}")
+
+    # the card against the CPU's plain versions on the first 128 tokens
+    # (16 whole classes), tiles of 32: within 2 u16 steps, the errors
+    # within 1e-3
+    sub = {k: tokens[k] for k in range(128)}
+    kw = dict(distance="dtw_cos", batch_size=32, strategy="tiles")
+    D_card = distance_matrix(TokenBank(sub), **kw)
+    t0 = time.perf_counter()
+    D_cpu = distance_matrix(TokenBank(sub, device="cpu"), **kw)
+    cpu_s = time.perf_counter() - t0
+    diff = float(np.abs(D_card - D_cpu).max())
+    err_card = abx_error(D_card, labels[:128], speakers[:128])["error"]
+    err_cpu = abx_error(D_cpu, labels[:128], speakers[:128])["error"]
+    if diff > 2 / 65535 or abs(err_card - err_cpu) > 1e-3:
+        raise AssertionError(f"card vs CPU: max diff {diff}, errors "
+                             f"{err_card} vs {err_cpu}")
+    pairs = N * (N - 1) // 2
+    emit({"phase": "eval_path", "frames": n_frames,
+          "embed_s": embed_s, "embed_frames_per_s": n_frames / embed_s,
+          "tokens": N, "classes": int(labels.max()) + 1,
+          "speakers": int(len(set(speakers.tolist()))),
+          "bank_shape": list(bank.bank.shape),
+          "distance_s": dist_s, "pairs": pairs,
+          "pairs_per_s": pairs / dist_s, "tiles": n_tiles,
+          "stats_launches": launches, "path_launches": path_launches,
+          "score_s": score_s, "error": score["error"],
+          "n_cells": score["n_cells"], "n_triplets": score["n_triplets"],
+          "check_tokens": 128, "card_vs_cpu_max_diff": diff,
+          "card_vs_cpu_error": [err_card, err_cpu], "cpu_tiles_s": cpu_s})
+    return bank, launches
+
+
+def stats_bound(n1, n2, B):
+    """Least time (ms) for the path stats of B pairs: the n1*n2 cells each
+    pair's DP needs (a float32 read each) plus the lengths and outputs,
+    vs about four float32 operations per needed cell."""
+    cells = int((n1.long() * n2.long()).sum())
+    nbytes = cells * 4 + B * 4 * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 4 * cells / H100_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def bound(B, T1, T2):
@@ -328,17 +515,69 @@ def phase_timing(trainer, loader):
     return rows, run
 
 
-def phase_profile(run, steps=10):
-    """Where one train step's time goes on the card: kernel time by
-    group over ``steps`` profiled steps, and the device's busy share of
-    the profiled window (the profiler's own cost is in that window)."""
+def phase_timing_stats(bank):
+    """The stats kernel at the ABX tile row (96, 1024, 96) on the eval
+    path's own data (the longest of tokens 0..1023, the slowest row,
+    against all of them), its plain version, and one whole tile row
+    (anchor distances + kernel + divide), by CUDA events."""
+    from abnet3_torch.ops.cuda_dtw import (dtw_path_stats_cuda,
+                                           dtw_path_stats_plain)
+    from abnet3_torch.ops.dtw import (anchor_angular_distance_rows,
+                                      dtw_path_stats_rows, unit_frames)
+    B, T = 1024, bank.max_len
+    fj, nj = bank.take(torch.arange(B, device="cuda"), T)
+    y_unit = unit_frames(fj)
+    a = int(np.argmax(bank.lengths_host[:B]))
+    n1 = torch.full((B,), int(bank.lengths_host[a]), dtype=torch.int32,
+                    device="cuda")
+    rows = anchor_angular_distance_rows(bank.bank[a], fj, y_unit=y_unit)
+    out = torch.empty(B, device="cuda")
+    ms = cuda_time_ms(lambda: dtw_path_stats_cuda(rows, n1, nj, rows=True),
+                      reps=200, warmup=10)
+    plain_ms = cuda_time_ms(
+        lambda: dtw_path_stats_plain(rows.permute(1, 0, 2), n1, nj),
+        reps=3, warmup=1)
+
+    def tile_row():
+        r = anchor_angular_distance_rows(bank.bank[a], fj, y_unit=y_unit)
+        psum, plen = dtw_path_stats_rows(r, n1, nj)
+        torch.div(psum, torch.clamp(plen, min=1.0), out=out)
+    row_ms = cuda_time_ms(tile_row, reps=100, warmup=5)
+    # the full-plane figure, for comparison with the data-dependent bound
+    plane_ms = (T * B * T * 4 + B * 16) / H100_BYTES_PER_S * 1e3
+    bound_ms, bound_by = stats_bound(n1, nj, B)
+    emit({"phase": "timing", "kernel": "dtw_path_stats",
+          "shape": [T, B, T], "anchor_len": int(n1[0]), "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "full_plane_bound_ms": plane_ms, "library_ms": None,
+          "tile_row_ms": row_ms})
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def kernel_group(name):
+    low = name.lower()
+    if "dtw_path_stats" in low:
+        return "dtw_path_stats"
+    if "dtw_path" in low:
+        return "dtw_path"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "matmul"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def phase_profile(of, run, reps, per_row=None):
+    """Where the time of ``reps`` calls of ``run`` goes on the card:
+    device time by kernel group and the device's busy share of the
+    profiled window (the profiler's own cost is in that window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(reps):
             run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -357,46 +596,65 @@ def phase_profile(run, steps=10):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s)
-
-    def group(name):
-        low = name.lower()
-        if "dtw_path" in low:
-            return "dtw_path"
-        if "gemm" in low or "cutlass" in low or "xmma" in low:
-            return "matmul"
-        if "memcpy" in low or "memset" in low:
-            return "copy"
-        return "other"
     groups = {}
     for name, t in by_name.items():
-        groups[group(name)] = groups.get(group(name), 0.0) + t
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "steps": steps,
-          "wall_ms_per_step": wall_us / steps / 1e3,
-          "device_busy_ms_per_step": busy / steps / 1e3,
-          "device_busy_share": busy / wall_us,
-          "kernel_launches_per_step": len(spans) / steps,
-          "group_ms_per_step": {k: v / steps / 1e3
-                                for k, v in sorted(groups.items())},
-          "top_kernels": [{"name": n[:80], "ms_per_step": t / steps / 1e3}
-                          for n, t in top]})
+    line = {"phase": "profile", "of": of, "reps": reps,
+            "wall_ms_per_rep": wall_us / reps / 1e3,
+            "device_busy_ms_per_rep": busy / reps / 1e3,
+            "device_busy_share": busy / wall_us,
+            "kernel_launches_per_rep": len(spans) / reps,
+            "group_ms_per_rep": {k: v / reps / 1e3
+                                 for k, v in sorted(groups.items())},
+            "top_kernels": [{"name": n[:80], "ms_per_rep": t / reps / 1e3}
+                            for n, t in top]}
+    if per_row:
+        line["kernel_launches_per_row"] = len(spans) / reps / per_row
+    emit(line)
+
+
+def abx_tile_run(bank, block=1024):
+    """One (block, block) ABX tile as ``distance_matrix`` computes it
+    (rows, u16 codes, the copy to the host), tokens 0..block-1."""
+    from abnet3_torch.eval.abx import (_dtw_tile_fn, _encode_tile_u16,
+                                       full_float32)
+    tile = _dtw_tile_fn(bank, "dtw_cos", bank.max_len, block)
+    ids = np.arange(block)
+
+    def run():
+        with torch.no_grad(), full_float32():
+            return _encode_tile_u16(tile(ids, ids)).cpu()
+    return run
 
 
 def main():
     smi_line = phase_device()
     phase_build()
     max_err = phase_kernel()
+    stats_err = phase_kernel_stats()
     trainer, loader, launches = phase_main_path()
+    bank, stats_launches = phase_eval_path(trainer.network, loader.features)
     rows, run_step = phase_timing(trainer, loader)
-    phase_profile(run_step)
+    stats_row = phase_timing_stats(bank)
+    phase_profile("train_step", run_step, reps=10)
+    phase_profile("abx_tile", abx_tile_run(bank), reps=1, per_row=1024)
     ms, plain_ms, bound_ms, bound_by = rows[(32, 96)]
+    s_ms, s_plain_ms, s_bound_ms, s_bound_by = stats_row
     emit({"kernels": [{
         "name": "dtw_path", "route": "cuda",
         "source": "abnet3_torch/csrc/dtw_path.cu",
         "replaces": "abnet3_tpu/ops/pallas_dtw.py:227",
         "launches": launches, "max_abs_err": max_err,
         "shape": [32, 96, 96], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]})
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
+        "name": "dtw_path_stats", "route": "cuda",
+        "source": "abnet3_torch/csrc/dtw_path_stats.cu",
+        "replaces": "abnet3_tpu/ops/pallas_dtw.py:511",
+        "launches": stats_launches, "max_abs_err": stats_err,
+        "shape": [bank.max_len, 1024, bank.max_len], "ms": s_ms,
+        "plain_ms": s_plain_ms, "bound_ms": s_bound_ms,
+        "bound_by": s_bound_by, "library_ms": None}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -118,3 +118,68 @@ def test_align_diff_batch_matches_jax(adw):
                                   16, 16, align_different_words=adw)
     for a, b in zip(out_j, out_t):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    """A stand-in ``nvcc`` that writes an empty file at ``-o`` and logs
+    its arguments, and a build directory of its own; libraries are not
+    loaded."""
+    log = tmp_path / "nvcc.log"
+    script = tmp_path / "nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {log}\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then shift; : > \"$1\"; fi; shift\n"
+        "done\n")
+    script.chmod(0o755)
+    monkeypatch.setattr(cuda_dtw, "_nvcc", lambda: str(script))
+    monkeypatch.setattr(cuda_dtw, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_dtw, "_LIBS", {})
+    monkeypatch.setattr(cuda_dtw, "_load", lambda name, path: path)
+    return log
+
+
+def test_build_makes_one_hashed_library_per_source(fake_nvcc):
+    """Each csrc/*.cu has its own library, named by its own hash; one
+    nvcc per source; a second build compiles nothing."""
+    import hashlib
+    import os
+    names = sorted(cuda_dtw._EXPORTS)
+    assert names == sorted(f[:-3] for f in os.listdir(cuda_dtw.CSRC)
+                           if f.endswith(".cu"))
+    info = cuda_dtw.build()
+    assert sorted(info) == names
+    paths = {n: cuda_dtw.library_path(n) for n in names}
+    assert len(set(paths.values())) == len(names)
+    for n in names:
+        with open(cuda_dtw.source_path(n), "rb") as fh:
+            digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+        assert os.path.basename(paths[n]) == f"lib{n}-{digest}.so"
+        assert info[n]["compiled"] and info[n]["path"] == paths[n]
+        assert os.path.exists(paths[n])
+        assert cuda_dtw._LIBS[n] == paths[n]
+    calls = fake_nvcc.read_text().splitlines()
+    assert len(calls) == len(names)
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    assert not any(i["compiled"] for i in cuda_dtw.build().values())
+    assert len(fake_nvcc.read_text().splitlines()) == len(names)
+
+
+def test_editing_one_source_rebuilds_only_its_library(fake_nvcc, tmp_path,
+                                                      monkeypatch):
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_dtw.CSRC, csrc)
+    monkeypatch.setattr(cuda_dtw, "CSRC", str(csrc))
+    before = {n: cuda_dtw.library_path(n) for n in cuda_dtw._EXPORTS}
+    with open(csrc / "dtw_path_stats.cu", "a") as fh:
+        fh.write("// edited\n")
+    after = {n: cuda_dtw.library_path(n) for n in cuda_dtw._EXPORTS}
+    assert after["dtw_path"] == before["dtw_path"]
+    assert after["dtw_path_stats"] != before["dtw_path_stats"]
+    cuda_dtw.build(["dtw_path"])
+    info = cuda_dtw.build()
+    assert not info["dtw_path"]["compiled"]
+    assert info["dtw_path_stats"]["compiled"]

@@ -21,7 +21,9 @@ SLICE_MODULES = [
     "abnet3_torch.ops", "abnet3_torch.ops.dtw", "abnet3_torch.ops.cuda_dtw",
     "abnet3_torch.ops.bank", "abnet3_torch.parallel",
     "abnet3_torch.parallel.mesh", "abnet3_torch.dataloader",
-    "abnet3_torch.trainer", "chip_smoke",
+    "abnet3_torch.trainer", "abnet3_torch.sampler",
+    "abnet3_torch.embedder", "abnet3_torch.eval", "abnet3_torch.eval.abx",
+    "chip_smoke",
 ]
 
 
@@ -77,6 +79,21 @@ def test_default_device_raises_without_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         SiameseNetwork(input_dim=4, num_hidden_layers=1, hidden_dim=8,
                        output_dim=2, activation_layer="sigmoid")
+
+
+def test_eval_path_default_device_raises_without_card(no_cuda):
+    from abnet3_torch.embedder import EmbedderSiamese
+    from abnet3_torch.eval.abx import evaluate
+    from abnet3_torch.models.siamese import SiameseNetwork
+    net = SiameseNetwork(input_dim=4, num_hidden_layers=1, hidden_dim=8,
+                         output_dim=2, activation_layer="sigmoid",
+                         device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbedderSiamese(network=net)
+    for kw in ({"cuda": False}, {"device": "cpu"}):
+        assert EmbedderSiamese(network=net, **kw).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate("feats.h5f", "missing.classes")
 
 
 def test_trainer_default_device_raises_without_card(no_cuda):
