@@ -1,13 +1,21 @@
-"""Dataloader of the training slice: token-pair files + features -> index
-batches against a device-resident token bank.
+"""Dataloader of the training slices: token-pair files + features ->
+batches for the train step.
 
 The counterpart of ``abnet3_tpu/dataloader.py``'s ``OriginalDataLoader``
-on its ``bank`` backend with the static same/diff split
-(``bank_split=True``), the flagship recipe. Batches hold token ids and
-per-pair weights only; the step gathers the frames on the device. The
-loader draws from ``np.random.RandomState(seed)`` in the same order as
-the JAX loader (batch selection each pass, the within-bucket shuffles), so
-the two packages see the same batches.
+on two backends:
+
+- ``device`` (the default, as in the JAX package): each batch of pairs
+  is padded into power-of-two length buckets, the same pairs are aligned
+  on the device (angular distances, the DTW move kernel, the backtrace
+  walk) and the aligned frames are gathered into a :class:`Batch` of
+  frame pairs with per-frame weights;
+- ``bank`` with the static same/diff split (``bank_split=True``), the
+  flagship recipe: batches hold token ids and per-pair weights only, and
+  the step gathers the frames from a device-resident token bank.
+
+The loader draws from ``np.random.RandomState(seed)`` in the same order as
+the JAX loader (batch selection each pass, the shuffles), so the two
+packages see the same batches.
 """
 
 from __future__ import annotations
@@ -15,14 +23,26 @@ from __future__ import annotations
 import inspect
 import os
 from collections import defaultdict
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from abnet3_torch.utils import (Features_Accessor, group_pairs,
-                                read_dataset, read_feats)
+                                pow2_bucket, read_dataset, read_feats,
+                                resolve_device)
 
-__all__ = ["SplitBankBatch", "DataLoader", "OriginalDataLoader"]
+__all__ = ["Batch", "SplitBankBatch", "DataLoader", "OriginalDataLoader"]
+
+
+class Batch(NamedTuple):
+    """One batch of aligned frame pairs (device backend): x1, x2 (N, d),
+    y (N,) +1 same / -1 different, weights (N,) 1 on path frames and 0 on
+    the padding past each pair's path."""
+    x1: torch.Tensor
+    x2: torch.Tensor
+    y: torch.Tensor
+    weights: torch.Tensor
 
 
 class SplitBankBatch(NamedTuple):
@@ -63,28 +83,43 @@ class DataLoader:
         return {"params": params, "class_name": self.__class__.__name__}
 
 
+def _pad_tokens(feats: Sequence[np.ndarray], T: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Zero-pad token feature matrices into (n, T, d), with their
+    lengths."""
+    d = feats[0].shape[1]
+    out = np.zeros((len(feats), T, d), np.float32)
+    lens = np.zeros((len(feats),), np.int32)
+    for i, f in enumerate(feats):
+        n = min(len(f), T)
+        out[i, :n] = f[:n]
+        lens[i] = n
+    return out, lens
+
+
 class OriginalDataLoader(DataLoader):
-    """Pair files -> same/diff split index batches against a token bank
+    """Pair files -> DTW-aligned frame-pair batches (``device`` backend)
+    or same/diff split index batches against a token bank (``bank``)
     (reference dataloader.py:43-352).
 
-    Only the ``bank`` backend with ``bank_split=True`` and ``tcl=0`` is
-    ported; other settings raise ``NotImplementedError``. ``device``
-    places the token bank (default: the card, see
-    :func:`abnet3_torch.utils.resolve_device`). ``steps_per_call`` is
-    read by the trainer, which buffers batches per length bucket to that
-    depth as the JAX trainer does.
+    The ``host`` backend, ``tcl > 0`` and, on the bank backend,
+    ``bank_split=False`` are not ported and raise ``NotImplementedError``.
+    ``device`` places the batches and the token bank (default: the card,
+    see :func:`abnet3_torch.utils.resolve_device`). ``steps_per_call`` is
+    read by the trainer, which buffers bank batches per length bucket to
+    that depth as the JAX trainer does.
     """
 
     def __init__(self, pairs_path, features_path, num_max_minibatches=1000,
                  seed=None, batch_size=8, shuffle_between_epochs=False,
                  align_different_words=False, tcl=0.0,
-                 align_backend="bank", bank_split=True, steps_per_call=8,
+                 align_backend="device", bank_split=True, steps_per_call=8,
                  device=None):
-        if align_backend != "bank":
+        if align_backend not in ("device", "bank"):
             raise NotImplementedError(
                 f"align_backend={align_backend!r}: abnet3_torch ports the "
-                "'bank' backend only")
-        if not bank_split:
+                "'device' and 'bank' backends only")
+        if align_backend == "bank" and not bank_split:
             raise NotImplementedError(
                 "bank_split=False (mixed same/diff bank batches) is not "
                 "ported")
@@ -132,7 +167,7 @@ class OriginalDataLoader(DataLoader):
         self.train_files = sorted(
             {p[0] for p in self.pairs["train"]}
             | {p[3] for p in self.pairs["train"]})
-        if self.token_bank is None:
+        if self.align_backend == "bank" and self.token_bank is None:
             self._build_token_bank()
 
     def _build_token_bank(self):
@@ -191,15 +226,95 @@ class OriginalDataLoader(DataLoader):
         return ids1[order], ids2[order], ys[order]
 
     def batch_iterator(self, train_mode=True):
-        """Yield SplitBankBatch index batches for one pass (an 'epoch'
-        samples num_max_minibatches batches)."""
+        """Yield one pass of batches (an 'epoch' samples
+        num_max_minibatches batches, reference dataloader.py:263-312):
+        :class:`Batch` on the device backend, :class:`SplitBankBatch` on
+        the bank backend."""
         self.load_data()
         mode = "train" if train_mode else "dev"
-        ids1, ids2, ys = self._epoch_bank_pairs(mode)
-        if len(ids1) == 0:  # empty split: no batches
+        if self.align_backend == "bank":
+            ids1, ids2, ys = self._epoch_bank_pairs(mode)
+            if len(ids1) == 0:  # empty split: no batches
+                return
+            yield from self._split_bank_batches(ids1, ids2, ys,
+                                                count_stats=train_mode)
             return
-        yield from self._split_bank_batches(ids1, ids2, ys,
-                                            count_stats=train_mode)
+        batches, selected = self._select_batches(list(self.pairs[mode]))
+        for batch_id in selected:
+            batch = self.load_frames_from_pairs_device(
+                group_pairs(batches[batch_id]))
+            if batch is not None:
+                yield batch
+
+    def _select_batches(self, pairs):
+        """Cut the pair list into batch_size slices (after a shuffle when
+        shuffle_between_epochs) and pick num_max_minibatches of them."""
+        num_pairs = len(pairs)
+        if self.shuffle_between_epochs:
+            self._rng.shuffle(pairs)
+        sliced = range(0, num_pairs, self.batch_size)
+        batches = [pairs[i:i + self.batch_size] for i in sliced]
+        if self.num_max_minibatches < len(batches):
+            selected = self._rng.choice(len(batches),
+                                        self.num_max_minibatches,
+                                        replace=False)
+        else:
+            print("Number of batches not sufficient,"
+                  " iterating over all the batches")
+            selected = self._rng.permutation(len(batches))
+        return batches, selected
+
+    # -- device batch construction ----------------------------------------
+
+    def _collect_pair_feats(self, pairs, token_feats, group):
+        """Valid (feat1, feat2) pairs of one group; drops the degenerate
+        tokens the reference skips (reference dataloader.py:184-190)."""
+        out = []
+        for f1, s1, e1, f2, s2, e2 in pairs[group]:
+            if (s1 > e1) or (s2 > e2):
+                continue
+            feat1 = token_feats[f1, s1, e1]
+            feat2 = token_feats[f2, s2, e2]
+            if len(feat1) == 0 or len(feat2) == 0:
+                continue
+            out.append((feat1, feat2))
+        return out
+
+    def load_frames_from_pairs_device(self, pairs):
+        """Device-aligned batch of grouped pairs ({'same': [...], 'diff':
+        [...]}), or None when no pair is valid (reference
+        dataloader.py:166-261)."""
+        return self._assemble_device(pairs, self.get_token_feats(pairs))
+
+    def _assemble_device(self, pairs, token_feats):
+        """Pad each group into power-of-two length buckets, align it on
+        the device (DTW for same pairs, truncate/diagonal for different
+        ones), gather the aligned frames and flatten both groups into one
+        :class:`Batch`; frames past a pair's path weigh 0. Counts the
+        pairs of every pass in ``statistics_training``, as the JAX loader
+        does."""
+        from abnet3_torch.ops.dtw import aligned_frame_pairs
+        dev = resolve_device(self.device)
+        segs = []
+        for group in ("same", "diff"):
+            feats = self._collect_pair_feats(pairs, token_feats, group)
+            if not feats:
+                continue
+            is_same = group == "same"
+            T1 = pow2_bucket(max(len(a) for a, _ in feats))
+            T2 = pow2_bucket(max(len(b) for _, b in feats))
+            f1, n1 = (torch.from_numpy(a).to(dev) for a in
+                      _pad_tokens([a for a, _ in feats], T1))
+            f2, n2 = (torch.from_numpy(a).to(dev) for a in
+                      _pad_tokens([b for _, b in feats], T2))
+            segs.append(aligned_frame_pairs(
+                f1, f2, n1, n2, is_same,
+                align_different_words=self.align_different_words))
+            self.statistics_training[
+                "SameType" if is_same else "DiffType"] += len(feats)
+        if not segs:
+            return None
+        return Batch(*(torch.cat(parts) for parts in zip(*segs)))
 
     def get_token_feats(self, pairs):
         """Slice unique token features (reference dataloader.py:147-164)."""

@@ -1,13 +1,20 @@
 """The DTW kernels: build, launch, and their plain versions.
 
-Two hand-written CUDA kernels, each replacing a TPU kernel of
+Four hand-written CUDA kernels, one for each TPU kernel of
 ``abnet3_tpu/ops/pallas_dtw.py``:
 
 - ``dtw_path_cuda`` (``csrc/dtw_path.cu``, replaces ``_dtw_path_kernel``):
-  the DTW backtrace-path mask of the training step;
+  the DTW backtrace-path mask of the matrix-mode training step;
 - ``dtw_path_stats_cuda`` (``csrc/dtw_path_stats.cu``, replaces
   ``_make_stats_kernel``): the (path sum, path length) of the backtrace
-  path, forward only, for the ABX distances.
+  path, forward only, for the ABX distances;
+- ``dtw_moves_cuda`` (``csrc/dtw_moves.cu``, replaces
+  ``_dtw_move_kernel``): the int8 argmin moves of the forward DP, which
+  the gather path walks back into alignment paths;
+- ``dtw_costs_cuda`` (the same source, replaces ``_dtw_kernel``): the
+  full DP cost tensor. No path of the port needs it (in the JAX package
+  only an availability probe and the tests call it); it completes the
+  set.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into
@@ -15,9 +22,10 @@ library with a plain C interface, at first use, into
 never loads a stale build), and loaded with ``ctypes``. :func:`build`
 compiles every missing library at once, one ``nvcc`` process per source.
 
-``dtw_path_plain`` and ``dtw_path_stats_plain`` are the same functions in
-plain PyTorch; the CPU path and the tests use them, and ``chip_smoke.py``
-holds each kernel against its plain version on the card. The dispatchers
+``dtw_path_plain``, ``dtw_path_stats_plain``, ``dtw_moves_plain`` and
+``dtw_costs_plain`` are the same functions in plain PyTorch; the CPU
+path and the tests use them, and ``chip_smoke.py`` holds each kernel
+against its plain version on the card. The dispatchers
 in :mod:`abnet3_torch.ops.dtw` pick between them by the tensor's device
 alone. Each wrapper counts its launches (``<wrapper>.launches``).
 """
@@ -39,7 +47,9 @@ from abnet3_torch.ops.dtw import (dtw_costs, moves_from_costs,
                                   onpath_from_moves)
 
 __all__ = ["build", "library_path", "dtw_path_cuda", "dtw_path_plain",
-           "dtw_path_stats_cuda", "dtw_path_stats_plain", "SMEM_LIMIT"]
+           "dtw_path_stats_cuda", "dtw_path_stats_plain", "dtw_moves_cuda",
+           "dtw_moves_plain", "dtw_costs_cuda", "dtw_costs_plain",
+           "SMEM_LIMIT"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -61,6 +71,10 @@ _EXPORTS = {
         "dtw_path_stats_launch": ([_P, _LL, _LL] + [_P] * 4 + [_I] * 3
                                   + [_P], _I),
         "dtw_path_stats_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+    },
+    "dtw_moves": {
+        "dtw_moves_launch": ([_P, _P] + [_I] * 3 + [_P], _I),
+        "dtw_costs_launch": ([_P, _P] + [_I] * 3 + [_P], _I),
     },
 }
 
@@ -295,3 +309,60 @@ def dtw_path_stats_plain(dist: torch.Tensor, n1: torch.Tensor,
     psum = torch.where(valid, D[bi, ii, jj], zero)
     plen = torch.where(valid, L[bi, ii, jj], zero)
     return psum, plen
+
+
+def _forward_dp(dist: torch.Tensor, out_dtype, name: str,
+                wrapper) -> torch.Tensor:
+    """Launch the forward-DP kernel of ``csrc/dtw_moves.cu`` that stores
+    ``out_dtype`` (int8 moves or float32 costs) through its C function
+    ``<name>_launch``, and add 1 to ``wrapper.launches`` when it
+    launched (an empty plane launches nothing)."""
+    if dist.dim() != 3:
+        raise ValueError(f"dist must be (B, T1, T2), got {tuple(dist.shape)}")
+    B, T1, T2 = dist.shape
+    _check(dist, "dist", torch.float32, (B, T1, T2))
+    if 3 * 4 * T2 > SMEM_LIMIT:
+        raise ValueError(f"T2={T2} exceeds the kernel's shared-memory "
+                         "diagonals")
+    lib = _lib("dtw_moves")
+    out = torch.empty((B, T1, T2), dtype=out_dtype, device=dist.device)
+    if B == 0 or T1 == 0 or T2 == 0:
+        return out
+    with torch.cuda.device(dist.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"{name}_launch")(
+            dist.data_ptr(), out.data_ptr(), B, T1, T2, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def dtw_moves_cuda(dist: torch.Tensor) -> torch.Tensor:
+    """Launch the move kernel: dist (B, T1, T2) float32, contiguous on a
+    CUDA device -> moves (B, T1, T2) int8 (3=diag, 2=up, 1=left).
+    ``dtw_moves_cuda.launches`` counts the launches."""
+    return _forward_dp(dist, torch.int8, "dtw_moves", dtw_moves_cuda)
+
+
+dtw_moves_cuda.launches = 0
+
+
+def dtw_moves_plain(dist: torch.Tensor) -> torch.Tensor:
+    """The move kernel's function in plain PyTorch, on any device."""
+    return moves_from_costs(dtw_costs(dist))
+
+
+def dtw_costs_cuda(dist: torch.Tensor) -> torch.Tensor:
+    """Launch the cost kernel: dist (B, T1, T2) float32, contiguous on a
+    CUDA device -> the DP cost tensor D (B, T1, T2) float32.
+    ``dtw_costs_cuda.launches`` counts the launches."""
+    return _forward_dp(dist, torch.float32, "dtw_costs", dtw_costs_cuda)
+
+
+dtw_costs_cuda.launches = 0
+
+
+def dtw_costs_plain(dist: torch.Tensor) -> torch.Tensor:
+    """The cost kernel's function in plain PyTorch, on any device."""
+    return dtw_costs(dist)

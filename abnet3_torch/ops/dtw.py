@@ -15,9 +15,14 @@ step:
    ties go diag, then up), and the mask of the cells the backtrace from
    (n1-1, n2-1) visits.
 3. :func:`dtw_path_from_dist` (path mask), :func:`dtw_path_stats` and
-   :func:`dtw_path_stats_rows` (path sum and length) dispatch: a CUDA
-   tensor goes to the hand-written kernels
-   (:mod:`abnet3_torch.ops.cuda_dtw`), a CPU tensor to their plain twins.
+   :func:`dtw_path_stats_rows` (path sum and length) and
+   :func:`dtw_moves_auto` (the move matrix) dispatch: a CUDA tensor goes
+   to the hand-written kernels (:mod:`abnet3_torch.ops.cuda_dtw`), a CPU
+   tensor to their plain twins.
+4. The gather path: :func:`walk_moves` walks each pair's moves back from
+   its endpoint into index paths, :func:`dtw_align_from_dist` and
+   :func:`dtw_align_batch` chain distances, moves and walk, and
+   :func:`gather_aligned` picks the aligned frames.
 
 :func:`dtw_costs` runs the recurrence ``D[i,j] = d[i,j] + min(up, left,
 diag)`` one anti-diagonal at a time, so each cell is one float32 add of
@@ -39,7 +44,10 @@ __all__ = ["pairwise_angular_distance", "unit_frames",
            "anchor_angular_distance_rows",
            "pairwise_kl_distance", "anchor_kl_distance_rows", "dtw_costs",
            "moves_from_costs", "onpath_from_moves", "dtw_path_from_dist",
-           "dtw_path_stats", "dtw_path_stats_rows", "align_diff_batch"]
+           "dtw_path_stats", "dtw_path_stats_rows", "dtw_moves_auto",
+           "walk_moves", "dtw_backtrace", "dtw_align_from_dist",
+           "dtw_align_batch", "gather_aligned", "align_diff_batch",
+           "aligned_frame_pairs"]
 
 # the "no neighbour" cost of the boundary cells, as in the JAX package
 _BIG = 1e30
@@ -275,6 +283,79 @@ def dtw_path_stats_rows(dist_rows: torch.Tensor, n1: torch.Tensor,
     return cuda_dtw.dtw_path_stats_plain(dist_rows.permute(1, 0, 2), n1, n2)
 
 
+def dtw_moves_auto(dist: torch.Tensor) -> torch.Tensor:
+    """Move matrix (B, T1, T2) int8 of a distance tensor: a CUDA tensor
+    runs the hand-written kernel, a CPU tensor the plain version."""
+    from abnet3_torch.ops import cuda_dtw
+    if dist.is_cuda:
+        return cuda_dtw.dtw_moves_cuda(dist.float().contiguous())
+    return cuda_dtw.dtw_moves_plain(dist)
+
+
+# (di, dj) of each move code: 1 = left, 2 = up, 3 = diag
+_MOVE_STEPS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def walk_moves(move: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Walk move matrices back from each pair's endpoint (n1-1, n2-1).
+
+    move (B, T1, T2) as produced by :func:`moves_from_costs`; n1, n2 (B,)
+    true lengths. Returns (path1, path2, path_len): paths (B, L) int64
+    with L = T1+T2-1 in increasing order, padded past path_len by
+    repeating the endpoint, as the JAX package's ``walk_moves``. One step
+    per loop iteration for all B pairs at once; a coordinate that a move
+    would take below 0 stays at 0, so the walk rests at (0, 0)."""
+    B, T1, T2 = move.shape
+    L = T1 + T2 - 1
+    dev = move.device
+    flat = move.reshape(B, T1 * T2).long()
+    steps = torch.tensor(_MOVE_STEPS, dtype=torch.long, device=dev)
+    ij = torch.stack([n1.to(dev).long() - 1, n2.to(dev).long() - 1])
+    trail = torch.empty((L, 2, B), dtype=torch.long, device=dev)
+    for s in range(L):
+        trail[s] = ij
+        m = flat.gather(1, (ij[0] * T2 + ij[1])[:, None])[:, 0]
+        ij = (ij - steps[m].t()).clamp_(min=0)
+    ris, rjs = trail[:, 0].t(), trail[:, 1].t()             # (B, L)
+    # the walk goes from the endpoint back to (0, 0), then repeats it
+    at_origin = (ris == 0) & (rjs == 0)
+    plen = L - at_origin.sum(1) + 1
+    idx = (plen[:, None] - 1
+           - torch.arange(L, device=dev)[None, :]).clamp(0, L - 1)
+    return ris.gather(1, idx), rjs.gather(1, idx), plen
+
+
+def dtw_backtrace(D: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Optimal paths from a DP cost tensor D (B, T1, T2), walked back from
+    each pair's true endpoint; output as :func:`walk_moves`."""
+    return walk_moves(moves_from_costs(D), n1, n2)
+
+
+def dtw_align_from_dist(dist: torch.Tensor, n1: torch.Tensor,
+                        n2: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Alignment paths from a distance tensor: the move kernel (on a CUDA
+    tensor) or its plain version, then :func:`walk_moves`."""
+    return walk_moves(dtw_moves_auto(dist), n1, n2)
+
+
+def dtw_align_batch(f1: torch.Tensor, f2: torch.Tensor, n1: torch.Tensor,
+                    n2: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DTW alignment of padded token pairs: f1 (B, T1, d), f2 (B, T2, d)
+    zero-padded, n1/n2 (B,) true lengths -> (path1, path2, path_len) as
+    in :func:`walk_moves`."""
+    return dtw_align_from_dist(pairwise_angular_distance(f1, f2), n1, n2)
+
+
+def gather_aligned(f: torch.Tensor, path: torch.Tensor) -> torch.Tensor:
+    """Aligned frames: f (B, T, d), path (B, L) -> (B, L, d)."""
+    index = path.long()[:, :, None].expand(-1, -1, f.shape[-1])
+    return torch.gather(f, 1, index)
+
+
 def align_diff_batch(n1: torch.Tensor, n2: torch.Tensor, T1: int, T2: int,
                      align_different_words: bool = False,
                      L: Optional[int] = None):
@@ -305,3 +386,33 @@ def align_diff_batch(n1: torch.Tensor, n2: torch.Tensor, T1: int, T2: int,
         p1 = torch.minimum(s, n1f - 1.0).long()
         p2 = torch.minimum(s, n2f - 1.0).long()
     return p1.clamp(0, T1 - 1), p2.clamp(0, T2 - 1), plen
+
+
+def aligned_frame_pairs(f1: torch.Tensor, f2: torch.Tensor,
+                        n1: torch.Tensor, n2: torch.Tensor, same: bool,
+                        align_different_words: bool = False,
+                        pair_w: Optional[torch.Tensor] = None):
+    """Aligned frame pairs of one group of padded token pairs: f1 (B, T1,
+    d), f2 (B, T2, d), n1/n2 (B,) true lengths.
+
+    Same-word pairs are aligned by DTW (:func:`dtw_align_batch`, L =
+    T1+T2-1), different-word pairs by :func:`align_diff_batch` (L =
+    max(T1, T2)). Returns (x1, x2, y, w): the gathered frames flattened to
+    (B*L, d) each, y (B*L,) +1 or -1, and w (B*L,) 1 on each path's steps
+    and 0 past them, times the per-pair weight ``pair_w`` (B,) if given.
+    """
+    if same:
+        p1, p2, plen = dtw_align_batch(f1, f2, n1, n2)
+    else:
+        p1, p2, plen = align_diff_batch(
+            n1, n2, f1.shape[1], f2.shape[1],
+            align_different_words=align_different_words)
+    x1 = gather_aligned(f1, p1)                          # (B, L, d)
+    x2 = gather_aligned(f2, p2)
+    B, L, d = x1.shape
+    dev = x1.device
+    w = (torch.arange(L, device=dev)[None, :] < plen[:, None]).float()
+    if pair_w is not None:
+        w = w * pair_w[:, None]
+    y = torch.full((B * L,), 1.0 if same else -1.0, device=dev)
+    return x1.reshape(-1, d), x2.reshape(-1, d), y, w.reshape(-1)

@@ -1,10 +1,12 @@
-"""The train-step factory of the split same/diff bank batches.
+"""The train-step factories of the split same/diff bank batches and of
+aligned frame-pair batches.
 
 The counterpart of ``abnet3_tpu/parallel/mesh.py`` (same file name, so
-the two are easy to pair), for ``make_split_pair_train_step`` in matrix
-mode on one device: no mesh, no temporal-coherence group, no multitask
-labels, and no K-chaining (a dispatch trick of jit; the trainer keeps its
-step order instead). Each step:
+the two are easy to pair), for ``make_split_pair_train_step`` on one
+device: no mesh, no temporal-coherence group, no multitask labels, and no
+K-chaining (a dispatch trick of jit; the trainer keeps its step order
+instead). In matrix mode (the default where the loss has a cell
+decomposition) each step:
 
 1. gathers the same-group and diff-group token frames from the
    :class:`~abnet3_torch.ops.bank.TokenBank` at the batch's length bucket;
@@ -18,6 +20,14 @@ step order instead). Each step:
    truncated diff diagonal row by row).
 
 Autograd covers the tower and the loss.
+
+In gather mode (``matrix_loss=False``) the step aligns the same pairs by
+DTW path indices instead (the move kernel on the card, then the
+backtrace walk), the different pairs by truncation or diagonal stretch,
+gathers the aligned frames, and runs the frame-pair step of
+:func:`make_frame_pair_steps`, the step the trainer also runs on the
+device loader's batches. The two modes give the same loss (the visit
+counts of matrix mode are the batch-norm weights of the gathered rows).
 """
 
 from __future__ import annotations
@@ -26,16 +36,18 @@ from typing import Optional
 
 import torch
 
-from abnet3_torch.ops.dtw import (align_diff_batch, dtw_path_from_dist,
+from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
+                                  dtw_path_from_dist,
                                   pairwise_angular_distance)
 
-__all__ = ["make_split_pair_train_step", "use_matrix_loss"]
+__all__ = ["make_split_pair_train_step", "make_frame_pair_steps",
+           "use_matrix_loss"]
 
 
 def use_matrix_loss(loss, override: Optional[bool] = None) -> bool:
     """Whether a step takes the matrix-loss path: ``override`` when
-    given, else whenever the loss has a cell decomposition. The port has
-    only this path, so the factory raises where this is False."""
+    given, else whenever the loss has a cell decomposition; otherwise it
+    takes the gather path."""
     if override is not None:
         return bool(override)
     return getattr(loss, "supports_cells", False)
@@ -118,6 +130,49 @@ def _matrix_cell_terms(cell_loss, e, A_s, A_d_parts):
     return c, y, w
 
 
+def make_frame_pair_steps(network, loss, optimizer):
+    """Train/eval steps over aligned frame pairs (the JAX trainer's
+    frame-pair step, and the gather mode's body). Both take x1, x2 (N, d),
+    y (N,) and weights w (N,) on the network's device and return the loss
+    as a 0-d device tensor; ``w`` weighs the loss and, in training, the
+    batch-norm statistics. ``train_step`` also updates the parameters
+    (``optimizer``) and batch-norm buffers in place."""
+
+    def train_step(x1, x2, y, w):
+        network.train()
+        optimizer.zero_grad(set_to_none=True)
+        e1, e2 = network.forward(x1, x2, weights=w)
+        value = loss(e1, e2, y, weights=w)
+        value.backward()
+        optimizer.step()
+        return value.detach()
+
+    @torch.no_grad()
+    def eval_step(x1, x2, y, w):
+        network.eval()
+        e1, e2 = network.forward(x1, x2)
+        return loss(e1, e2, y, weights=w)
+
+    return train_step, eval_step
+
+
+@torch.no_grad()
+def _split_bank_align(bank, ids1s, ids2s, ws, ids1d, ids2d, wd,
+                      align_different_words: bool, T: int):
+    """Gather-mode batch assembly: the same group aligned by DTW (paths of
+    2T-1 steps), the different group by truncation or diagonal stretch
+    (T steps), both gathered and flattened into frame pairs (x1, x2, y,
+    w) whose weights mask each path's padding and each pair's weight."""
+    f1s, n1s = bank.take(ids1s, T)
+    f2s, n2s = bank.take(ids2s, T)
+    f1d, n1d = bank.take(ids1d, T)
+    f2d, n2d = bank.take(ids2d, T)
+    same = aligned_frame_pairs(f1s, f2s, n1s, n2s, True, pair_w=ws)
+    diff = aligned_frame_pairs(f1d, f2d, n1d, n2d, False,
+                               align_different_words, pair_w=wd)
+    return tuple(torch.cat(parts) for parts in zip(same, diff))
+
+
 def make_split_pair_train_step(network, loss, optimizer, bank,
                                align_different_words: bool = False,
                                max_frames: int = None,
@@ -127,13 +182,23 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
     device tensors (ids1s, ids2s, ws, ids1d, ids2d, wd) and return the
     batch loss as a 0-d device tensor. ``train_step`` also updates the
     network's parameters (``optimizer``) and batch-norm buffers in place.
-    ``max_frames`` is the batch's length bucket."""
-    if not use_matrix_loss(loss, matrix_loss):
-        raise NotImplementedError(
-            "abnet3_torch ports the matrix-loss step only: the loss needs a "
-            "cell decomposition (coscos2, cosmargin) and matrix_loss must "
-            "not be False")
+    ``max_frames`` is the batch's length bucket. ``matrix_loss`` picks
+    the mode (see :func:`use_matrix_loss`)."""
     Tb = max_frames if max_frames is not None else bank.max_len
+    if not use_matrix_loss(loss, matrix_loss):
+        frame_train, frame_eval = make_frame_pair_steps(network, loss,
+                                                        optimizer)
+
+        def align(*args):
+            return _split_bank_align(bank, *args, align_different_words, Tb)
+
+        def gather_train_step(*args):
+            return frame_train(*align(*args))
+
+        def gather_eval_step(*args):
+            return frame_eval(*align(*args))
+
+        return gather_train_step, gather_eval_step
 
     @torch.no_grad()
     def matrix_parts(ids1s, ids2s, ws, ids1d, ids2d, wd):

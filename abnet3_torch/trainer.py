@@ -1,16 +1,21 @@
 """Trainers: the epoch loop and early stopping around the train step.
 
 The counterpart of ``abnet3_tpu/trainer.py`` for ``TrainerSiamese`` on the
-split bank batches of :class:`~abnet3_torch.dataloader.OriginalDataLoader`
-(the flagship recipe): an epoch-0 eval pass, dev-loss early stopping with
-patience, best-network ``.pth`` + pickled ``.params`` outputs, a resumable
-checkpoint and JSONL loss logs.
+batches of :class:`~abnet3_torch.dataloader.OriginalDataLoader`: split
+bank batches (the flagship recipe) and aligned frame-pair batches (the
+device backend). It runs an epoch-0 eval pass, dev-loss early stopping
+with patience, best-network ``.pth`` + pickled ``.params`` outputs, a
+resumable checkpoint and JSONL loss logs.
 
-The JAX trainer buffers batches per length bucket and dispatches them
+The JAX trainer buffers bank batches per length bucket and dispatches them
 ``steps_per_call`` at a time; this trainer keeps that buffering and runs
 the buffered batches one step at a time in the same order, so both
 packages take the same steps and report the same per-batch losses for
-every ``steps_per_call``.
+every ``steps_per_call``. A frame-pair batch takes one step as it comes.
+The JAX trainer pads a frame-pair batch's rows to a power of two (at
+least 256) with weight 0 so that its jitted step compiles once per
+bucket; the padding moves neither the weighted loss nor the weighted
+batch norm, and this trainer, which compiles nothing, leaves it out.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from abnet3_torch.dataloader import SplitBankBatch
+from abnet3_torch.dataloader import Batch, SplitBankBatch
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
 
@@ -76,8 +81,9 @@ class TrainerBuilder:
     ``cuda`` (kept from the YAML schema) and ``device`` choose the
     device: the card unless ``cuda=False`` or ``device='cpu'``; the
     network must already live there. ``mesh`` must stay None (multi-GPU
-    is not ported) and ``matrix_loss`` may not be False (only the
-    matrix-loss step is ported). ``prefetch`` is accepted for the YAML
+    is not ported). ``matrix_loss`` picks the split bank step's mode
+    (None: matrix mode whenever the loss has a cell decomposition; False:
+    the gather path). ``prefetch`` is accepted for the YAML
     schema and unused: the steps run asynchronously on the card, so the
     host builds the next batch while the card computes."""
 
@@ -334,14 +340,27 @@ class TrainerSiamese(TrainerBuilder):
         bufs.clear()
         return out
 
+    def _frame_pair_step(self, b: Batch, do_training: bool):
+        """One train (or eval) step on an aligned frame-pair batch;
+        returns its loss as a 0-d device tensor."""
+        if "frames" not in self._step_fns:
+            from abnet3_torch.parallel import make_frame_pair_steps
+            self._step_fns["frames"] = make_frame_pair_steps(
+                self.network, self.loss, self.optimizer)
+        train_step, eval_step = self._step_fns["frames"]
+        step = train_step if do_training else eval_step
+        return step(*(t.to(self.device) for t in b))
+
     def give_batch_to_network(self, batch, do_training):
-        """Buffer one batch; returns the per-batch losses of the steps it
-        released (reference trainer.py:211-224)."""
-        if not isinstance(batch, SplitBankBatch):
-            raise NotImplementedError(
-                f"{type(batch).__name__}: abnet3_torch trains on split bank "
-                "batches only")
-        return self._give_buffered_batch(batch, do_training)
+        """Run or buffer one batch; returns the per-batch losses of the
+        steps it released (reference trainer.py:211-224)."""
+        if isinstance(batch, SplitBankBatch):
+            return self._give_buffered_batch(batch, do_training)
+        if isinstance(batch, Batch):
+            return [self._frame_pair_step(batch, do_training)]
+        raise NotImplementedError(
+            f"{type(batch).__name__}: abnet3_torch trains on split bank "
+            "batches and aligned frame-pair batches only")
 
     def _pass(self, train_mode: bool, do_training: bool):
         """Losses of one pass over a split's batches."""

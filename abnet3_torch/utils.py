@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["read_spkid_file", "read_dataset", "group_pairs",
-           "Features_Accessor", "read_feats", "resolve_device"]
+           "Features_Accessor", "read_feats", "resolve_device",
+           "pow2_bucket"]
 
 
 def resolve_device(device=None, cuda: bool = True) -> torch.device:
@@ -133,3 +134,12 @@ def read_feats(features_file: str,
         align_accessor = Features_Accessor(adata.dict_labels(),
                                            adata.dict_features())
     return accessor, align_accessor, feat_dim
+
+
+def pow2_bucket(n: int, minimum: int = 8) -> int:
+    """Round up to a power-of-two bucket (``minimum`` times a power of
+    two), so batch shapes repeat."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b

@@ -110,3 +110,67 @@ def test_stats_dispatchers_launch_kernel_on_card(cuda_device):
     assert cuda_dtw.dtw_path_stats_cuda.launches == before + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+FORWARD_SHAPES = [(32, 128, 128), (64, 96, 96), (7, 40, 72), (5, 72, 40),
+                  (2, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["angular", "ties"])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES)
+def test_dtw_moves_kernel_matches_plain(cuda_device, kind, shape):
+    """int8 moves bit-equal; the walk of the moves covers exactly the
+    path kernel's mask."""
+    from abnet3_torch.ops.dtw import walk_moves
+    dist, n1, n2 = _inputs(kind, shape, cuda_device)
+    before = cuda_dtw.dtw_moves_cuda.launches
+    mv = cuda_dtw.dtw_moves_cuda(dist)
+    torch.cuda.synchronize()
+    assert cuda_dtw.dtw_moves_cuda.launches == before + 1
+    assert mv.dtype == torch.int8
+    assert torch.equal(mv, cuda_dtw.dtw_moves_plain(dist))
+    p1, p2, plen = walk_moves(mv, n1, n2)
+    A = cuda_dtw.dtw_path_cuda(dist, n1, n2)
+    assert torch.equal(plen, A.sum((1, 2)).long())
+    steps = torch.arange(p1.shape[1], device=cuda_device)[None, :]
+    rows = torch.arange(p1.shape[0], device=cuda_device)[:, None]
+    on_path = A[rows, p1, p2]
+    assert bool((on_path[steps < plen[:, None]] == 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["angular", "ties"])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES)
+def test_dtw_costs_kernel_matches_plain(cuda_device, kind, shape):
+    """The cost tensor bit-equal (max difference 0.0)."""
+    dist, _, _ = _inputs(kind, shape, cuda_device)
+    before = cuda_dtw.dtw_costs_cuda.launches
+    D = cuda_dtw.dtw_costs_cuda(dist)
+    torch.cuda.synchronize()
+    assert cuda_dtw.dtw_costs_cuda.launches == before + 1
+    assert torch.equal(D, cuda_dtw.dtw_costs_plain(dist))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["dtw_moves_cuda", "dtw_costs_cuda"])
+@pytest.mark.parametrize("shape", [(0, 16, 16), (3, 0, 16), (3, 16, 0)])
+def test_forward_kernels_count_no_launch_on_empty_plane(cuda_device, wrapper,
+                                                        shape):
+    fn = getattr(cuda_dtw, wrapper)
+    before = fn.launches
+    out = fn(torch.zeros(shape, device=cuda_device))
+    assert tuple(out.shape) == shape
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_align_dispatcher_launches_move_kernel_on_card(cuda_device):
+    from abnet3_torch.ops.dtw import dtw_align_from_dist
+    dist, n1, n2 = _inputs("angular", (6, 20, 28), cuda_device)
+    before = cuda_dtw.dtw_moves_cuda.launches
+    card = dtw_align_from_dist(dist, n1, n2)
+    assert cuda_dtw.dtw_moves_cuda.launches == before + 1
+    cpu = dtw_align_from_dist(dist.cpu(), n1.cpu(), n2.cpu())
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)

@@ -183,3 +183,109 @@ def test_editing_one_source_rebuilds_only_its_library(fake_nvcc, tmp_path,
     info = cuda_dtw.build()
     assert not info["dtw_path"]["compiled"]
     assert info["dtw_path_stats"]["compiled"]
+
+
+# -- the gather path: moves, costs, walk, align, gather --------------------
+
+
+@pytest.mark.parametrize("kind", ["angular", "ties"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_moves_plain_matches_jax_scan_and_pallas(kind, shape):
+    """The move kernel's plain version equals the JAX scan's moves and the
+    Pallas move kernel in interpret mode, exactly."""
+    from abnet3_tpu.ops.pallas_dtw import dtw_moves_pallas
+    dist = _dist(kind, shape, seed=8)
+    dj = jnp.asarray(dist)
+    m_scan = np.asarray(jdtw.moves_from_costs(jdtw.dtw_costs(dj)))
+    m_pallas = np.asarray(dtw_moves_pallas(dj, interpret=True))
+    m_t = cuda_dtw.dtw_moves_plain(torch.from_numpy(dist))
+    assert m_t.dtype == torch.int8
+    np.testing.assert_array_equal(m_t.numpy(), m_scan)
+    np.testing.assert_array_equal(m_t.numpy(), m_pallas)
+
+
+@pytest.mark.parametrize("kind", ["angular", "ties"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_costs_plain_matches_pallas(kind, shape):
+    """The cost kernel's plain version against the Pallas cost kernel in
+    interpret mode (its log-doubling prefix sums round differently)."""
+    from abnet3_tpu.ops.pallas_dtw import dtw_costs_pallas
+    dist = _dist(kind, shape, seed=9)
+    D_p = np.asarray(dtw_costs_pallas(jnp.asarray(dist), interpret=True))
+    D_t = cuda_dtw.dtw_costs_plain(torch.from_numpy(dist)).numpy()
+    np.testing.assert_allclose(D_t, D_p, rtol=1e-5, atol=1e-4)
+
+
+def _assert_paths_equal(out_j, out_t):
+    for a, b in zip(out_j, out_t):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("kind", ["angular", "ties"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_walk_and_align_match_jax(kind, shape):
+    """walk_moves, dtw_backtrace and dtw_align_from_dist give the JAX
+    package's paths and lengths exactly, and each walked path covers
+    exactly the cells of the path mask."""
+    dist = _dist(kind, shape, seed=10)
+    n1, n2 = _lengths(shape, seed=10)
+    dj, n1j, n2j = jnp.asarray(dist), jnp.asarray(n1), jnp.asarray(n2)
+    dt, n1t, n2t = (torch.from_numpy(a) for a in (dist, n1, n2))
+    D_j = jdtw.dtw_costs(dj)
+    walked_j = jdtw.walk_moves(jdtw.moves_from_costs(D_j), n1j, n2j)
+    walked_t = tdtw.walk_moves(cuda_dtw.dtw_moves_plain(dt), n1t, n2t)
+    _assert_paths_equal(walked_j, walked_t)
+    _assert_paths_equal(jdtw.dtw_backtrace(D_j, n1j, n2j),
+                        tdtw.dtw_backtrace(tdtw.dtw_costs(dt), n1t, n2t))
+    _assert_paths_equal(jdtw.dtw_align_from_dist(dj, n1j, n2j,
+                                                 use_pallas=False),
+                        tdtw.dtw_align_from_dist(dt, n1t, n2t))
+    p1, p2, plen = walked_t
+    A = cuda_dtw.dtw_path_plain(dt, n1t, n2t)
+    np.testing.assert_array_equal(A.sum((1, 2)).numpy(), plen.numpy())
+    for b in range(shape[0]):
+        k = int(plen[b])
+        cells = A[b, p1[b, :k], p2[b, :k]]
+        assert torch.equal(cells, torch.ones(k))
+        assert (int(p1[b, -1]), int(p2[b, -1])) == (n1[b] - 1, n2[b] - 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_align_batch_and_gather_match_jax(seed):
+    """dtw_align_batch (zero-padded frames, ragged lengths) and
+    gather_aligned against the JAX package, exactly."""
+    rng = np.random.RandomState(seed)
+    B, T1, T2, d = 5, 16, 32, 6
+    n1 = rng.randint(1, T1 + 1, B).astype(np.int32)
+    n2 = rng.randint(1, T2 + 1, B).astype(np.int32)
+    n1[0], n2[0] = T1, T2
+    f1 = rng.randn(B, T1, d).astype(np.float32)
+    f2 = rng.randn(B, T2, d).astype(np.float32)
+    for f, n in ((f1, n1), (f2, n2)):
+        for b in range(B):
+            f[b, n[b]:] = 0.0
+    out_j = jdtw.dtw_align_batch(*(jnp.asarray(a) for a in (f1, f2, n1, n2)))
+    out_t = tdtw.dtw_align_batch(*(torch.from_numpy(a)
+                                   for a in (f1, f2, n1, n2)))
+    _assert_paths_equal(out_j, out_t)
+    for f, p_j, p_t in ((f1, out_j[0], out_t[0]), (f2, out_j[1], out_t[1])):
+        g_j = np.asarray(jdtw.gather_aligned(jnp.asarray(f), p_j))
+        g_t = tdtw.gather_aligned(torch.from_numpy(f), p_t).numpy()
+        np.testing.assert_array_equal(g_t, g_j)
+
+
+def test_moves_dispatcher_takes_plain_on_cpu():
+    dist = torch.from_numpy(_dist("angular", (4, 12, 20), seed=11))
+    before = cuda_dtw.dtw_moves_cuda.launches
+    assert torch.equal(tdtw.dtw_moves_auto(dist),
+                       cuda_dtw.dtw_moves_plain(dist))
+    assert cuda_dtw.dtw_moves_cuda.launches == before
+
+
+@pytest.mark.parametrize("wrapper", ["dtw_moves_cuda", "dtw_costs_cuda"])
+def test_forward_kernel_wrappers_reject_cpu_tensors(wrapper):
+    fn = getattr(cuda_dtw, wrapper)
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(torch.zeros(2, 4, 4))
+    assert fn.launches == before

@@ -111,22 +111,38 @@ def test_trainer_default_device_raises_without_card(no_cuda):
         assert tr.device == torch.device("cpu")
 
 
-def test_loader_bank_default_device_raises_without_card(no_cuda, tmp_path):
+def _one_pair_loader(**kw):
     from abnet3_torch.dataloader import OriginalDataLoader
     from abnet3_torch.utils import Features_Accessor
-    dl = OriginalDataLoader(None, None)
+    dl = OriginalDataLoader(None, None, **kw)
     times = {"f": np.arange(10) * 0.01 + 0.0025}
     dl.features = Features_Accessor(
         times, {"f": np.ones((10, 2), np.float32)})
     tok = ("f", 0.0, 0.05)
     dl.pairs = {"train": [tok + tok + ("same",)], "dev": []}
+    return dl
+
+
+def test_loader_bank_default_device_raises_without_card(no_cuda, tmp_path):
+    dl = _one_pair_loader(align_backend="bank")
     with pytest.raises(RuntimeError, match="CUDA"):
         dl.load_data()
 
 
-@pytest.mark.parametrize("kw", [{"align_backend": "device"},
+def test_loader_device_backend_raises_without_card(no_cuda):
+    """The device backend (the default) builds no bank, and its first
+    batch asks for the card."""
+    dl = _one_pair_loader()
+    dl.load_data()
+    assert dl.token_bank is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(dl.batch_iterator())
+
+
+@pytest.mark.parametrize("kw", [{"align_backend": "bank", "tcl": 0.1},
                                 {"align_backend": "host"},
-                                {"bank_split": False}, {"tcl": 0.1}])
+                                {"align_backend": "bank",
+                                 "bank_split": False}, {"tcl": 0.1}])
 def test_loader_unported_options_raise(kw):
     from abnet3_torch.dataloader import OriginalDataLoader
     with pytest.raises(NotImplementedError):

@@ -1,6 +1,7 @@
-"""The training slice as a whole: the port's OriginalDataLoader (bank,
-split batches) and TrainerSiamese against the JAX package's, from the
-same corpus files and the same initial weights."""
+"""The training slices as a whole: the port's OriginalDataLoader (bank
+backend with split batches, device backend with aligned frame pairs) and
+TrainerSiamese against the JAX package's, from the same corpus files and
+the same initial weights."""
 
 import os
 
@@ -89,8 +90,8 @@ def test_split_bank_batches_identical(corpus, num_max):
 
 
 def _trainers(corpus, tmp_path, steps_per_call, optimizer_type="adadelta",
-              lr=0.1):
-    jl, tl = _loaders(corpus, steps_per_call=steps_per_call)
+              lr=0.1, matrix_loss=None, **loader_kw):
+    jl, tl = _loaders(corpus, steps_per_call=steps_per_call, **loader_kw)
     kw = dict(input_dim=4, num_hidden_layers=1, hidden_dim=16, output_dim=8,
               p_dropout=0.0, activation_layer="sigmoid", batch_norm=True)
     jnet, tnet, params, state = carried_networks(JNet, TNet, **kw)
@@ -99,7 +100,7 @@ def _trainers(corpus, tmp_path, steps_per_call, optimizer_type="adadelta",
     jnet.output_path = str(tmp_path / "jax_net")
     tnet.output_path = str(tmp_path / "torch_net")
     tkw = dict(optimizer_type=optimizer_type, lr=lr, num_epochs=2,
-               patience=5, seed=0)
+               patience=5, seed=0, matrix_loss=matrix_loss)
     jt = JTrainer(network=jnet, loss=Jcoscos2(), dataloader=jl,
                   log_dir=str(tmp_path / "jax_logs"), **tkw)
     tt = TTrainer(network=tnet, loss=Tcoscos2(), dataloader=tl,
@@ -153,3 +154,78 @@ def test_checkpoint_restores_training_state(corpus, tmp_path):
         for k in opt_state[i]:
             assert torch.equal(restored[i][k], opt_state[i][k])
     assert (tt.train_losses, tt.dev_losses) == losses
+
+
+# -- the device backend and the gather path -----------------------------
+
+
+def _batch_arrays(b):
+    return [np.asarray(getattr(b, f)) for f in ("x1", "x2", "y", "weights")]
+
+
+@pytest.mark.parametrize("shuffle,num_max", [(True, 2), (False, 3)])
+def test_device_batches_identical(corpus, shuffle, num_max):
+    """The device backend yields the JAX loader's batches, pass after
+    pass: aligned frames x1/x2, labels and weights exactly equal, and the
+    same pair statistics."""
+    jl, tl = _loaders(corpus, align_backend="device",
+                      shuffle_between_epochs=shuffle,
+                      num_max_minibatches=num_max)
+    for _ in range(3):
+        for train_mode in (True, False):
+            jb = list(jl.batch_iterator(train_mode=train_mode))
+            tb = list(tl.batch_iterator(train_mode=train_mode))
+            assert len(jb) == len(tb) > 0
+            for a, b in zip(jb, tb):
+                assert type(b).__name__ == "Batch"
+                for x, y, f in zip(_batch_arrays(a), _batch_arrays(b),
+                                   ("x1", "x2", "y", "weights")):
+                    assert y.dtype == np.float32
+                    np.testing.assert_array_equal(y, x, err_msg=f)
+    assert dict(tl.statistics_training) == dict(jl.statistics_training)
+    assert tl.token_bank is None
+
+
+def test_default_backend_matches_jax(corpus):
+    """A loader built without align_backend takes the device backend in
+    both packages: the same kind of batches, and no token bank."""
+    feats_path, pairs_path = corpus
+    kw = dict(batch_size=2, num_max_minibatches=3, seed=0)
+    jl = JLoader(pairs_path, feats_path, **kw)
+    tl = TLoader(pairs_path, feats_path, device="cpu", **kw)
+    assert tl.align_backend == jl.align_backend == "device"
+    jb = next(iter(jl.batch_iterator()))
+    tb = next(iter(tl.batch_iterator()))
+    assert type(tb).__name__ == type(jb).__name__ == "Batch"
+    np.testing.assert_array_equal(np.asarray(tb.x1), np.asarray(jb.x1))
+    assert jl.token_bank is None and tl.token_bank is None
+
+
+@pytest.mark.parametrize("optimizer_type,lr", [("adadelta", 0.1),
+                                               ("sgd", 0.5)])
+def test_device_backend_two_epochs_match_jax(corpus, tmp_path,
+                                             optimizer_type, lr):
+    """The epoch-0 eval plus 2 epochs on the device backend (frame-pair
+    steps, one per batch): losses, params and batch-norm state agree."""
+    jt, tt = _trainers(corpus, tmp_path, 1, optimizer_type, lr,
+                       align_backend="device")
+    jt.train()
+    tt.train()
+    assert len(tt.train_losses) == 3
+    np.testing.assert_allclose(tt.train_losses, jt.train_losses, rtol=1e-4)
+    np.testing.assert_allclose(tt.dev_losses, jt.dev_losses, rtol=1e-4)
+    assert_trees_close((jt.network.params, jt.network.state), tt.network,
+                       rtol=0, atol=1e-4)
+    assert tt.statistics_training == jt.statistics_training
+
+
+def test_bank_gather_two_epochs_match_jax(corpus, tmp_path):
+    """The bank backend with matrix_loss=False (the gather mode of the
+    split step) over the epoch-0 eval plus 2 epochs."""
+    jt, tt = _trainers(corpus, tmp_path, 2, matrix_loss=False)
+    jt.train()
+    tt.train()
+    np.testing.assert_allclose(tt.train_losses, jt.train_losses, rtol=1e-4)
+    np.testing.assert_allclose(tt.dev_losses, jt.dev_losses, rtol=1e-4)
+    assert_trees_close((jt.network.params, jt.network.state), tt.network,
+                       rtol=0, atol=1e-4)
