@@ -7,9 +7,9 @@
 //   - _dtw_move_kernel (wrapper dtw_moves_pallas): moves 3=diag, 2=up,
 //     1=left, for the backtrace walk of the gather path;
 //   - _dtw_kernel (wrapper dtw_costs_pallas): the cost tensor D.
-// One kernel template, instantiated for each store, computes for every
-// pair b over the whole padded (T1, T2) plane (no lengths: the DP flows
-// from (0,0) outward, so padding never reaches a valid cell)
+// Both compute, for every pair b over the whole padded (T1, T2) plane (no
+// lengths: the DP flows from (0,0) outward, so padding never reaches a
+// valid cell)
 //     D[i,j] = dist[i,j] + min(D[i-1,j-1], D[i-1,j], D[i,j-1])
 // with missing neighbours counting as BIG = 1e30, D[0,0] = dist[0,0] + 0,
 // and the move of each cell by the comparisons of
@@ -18,88 +18,198 @@
 // 3 at (0,0) and 1 elsewhere and column 0 read 2 below it, as the TPU
 // kernel writes them. Each cell is one float32 add of dist and an exact
 // minimum, the arithmetic of the plain PyTorch version (ops/dtw.py
-// dtw_costs, by anti-diagonals), so moves and costs equal it bit for bit.
-// The TPU kernels' log-doubling prefix sums round differently and are not
-// copied.
+// dtw_costs), so moves and costs equal it bit for bit. The TPU kernels'
+// log-doubling prefix sums round differently and are not copied.
 //
-// Design: one thread block per pair, one thread per cell of an
-// anti-diagonal (a loop over cells when the diagonal is longer than the
-// block). The T1+T2-1 anti-diagonals run as a wavefront with three
-// rotating diagonals of D in shared memory (3 * 4 * T2 bytes: 1.5 KB at
-// T2 = 128, so every bucket up to T2 = 19,370 fits); each step ends in a
-// block-wide barrier. Each cell's result goes straight to global memory.
+// What bounds it on an H100: by the roofline, the bytes: B*T1*T2*(4 + 1)
+// for moves and B*T1*T2*(4 + 4) for costs, 2.6 MB and 4.2 MB at
+// (32, 128, 128), 0.8 and 1.3 us at 3.35 TB/s. No schedule reaches that:
+// the DP is a chain of dependent steps, and a batch of 32 pairs puts one
+// warp on each of 32 SMs. The floor of this design is the chain: T1 +
+// lanes - 1 steps (159 at T = 128), each costing what the dispatch of
+// its operations takes from one warp. The anti-diagonal kernel it replaces
+// paid T1 + T2 - 1 block barriers with a trip to device memory inside
+// each.
 //
-// What bounds it on an H100: the bytes are B*T1*T2*(4 + 1) for moves and
-// B*T1*T2*(4 + 4) for costs, 2.6 MB and 4.2 MB at (32, 128, 128), 0.8 and
-// 1.3 us at 3.35 TB/s. The real limit is latency: T1+T2-1 dependent steps,
-// each ending in a barrier, with only B (about 32 on the gather path)
-// blocks on 132 SMs, and anti-diagonal reads and writes that touch one
-// element per row (uncoalesced). Several pairs per block and a staged,
-// coalesced store of the plane are the later work that attacks it.
+// Design (the warp core is csrc/dtw_strip.cuh, which says how): one warp
+// per pair and no block barrier; lane l owns W = 1, 2 or 4 neighbouring
+// columns (the least with 32 * W >= T2) and runs one row behind lane l-1,
+// its left neighbour arriving by __shfl_up_sync; the costs are requested
+// with cp.async kPrefetch = 8 rows ahead of the wavefront into a per-warp
+// ring of rows in shared memory, so no step of the chain waits on device
+// memory; a lane stores the W moves of its row as one 32-bit (W = 4) or
+// 16-bit (W = 2) word and its W costs as one vector where T2 is a
+// multiple of W, else element by element. A block holds as many pairs as
+// it takes for the batch to be resident in one wave (one at B <= 132, so
+// that a small batch spreads over the SMs; up to 8). Planes wider than
+// 128 columns run in column chunks of 128, the last column of a chunk
+// carried in shared memory (T1 floats), which takes every T1 up to about
+// 52,000 and any T2.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dtw_strip.cuh"
 
 namespace {
 
-constexpr float kBig = 1e30f;
+using dtw_strip::Geometry;
 
-template <bool kStoreCosts>
-__global__ void dtw_forward_kernel(const float* __restrict__ dist,
-                                   void* __restrict__ out, int T1, int T2) {
-  extern __shared__ __align__(16) float diags[];
-  const size_t plane = static_cast<size_t>(T1) * T2;
-  const size_t base = static_cast<size_t>(blockIdx.x) * plane;
-  const float* d = dist + base;
+// The forward DP of one pair per warp; kStoreCosts picks the store.
+template <int W, bool kStoreCosts, bool kVec4, bool kCarry>
+__device__ __forceinline__ void forward_pair(const float* __restrict__ dist,
+                                             void* __restrict__ out, int b,
+                                             int T1, int T2, int chunks,
+                                             float* ring, int pitch,
+                                             int ring_rows) {
+  using Out = typename std::conditional<kStoreCosts, float, int8_t>::type;
+  const int lane = threadIdx.x & 31;
+  float* carry = ring + ring_rows * pitch;
+  const size_t base = static_cast<size_t>(b) * T1 * T2;
+  constexpr int kChunk = 32 * W;
+  const bool packed = T2 % W == 0;  // whole strips only, aligned stores
 
-  // diagonal k holds the cells (k - j, j)
-  for (int k = 0; k < T1 + T2 - 1; ++k) {
-    float* cur = diags + (k % 3) * T2;
-    const float* prev1 = diags + ((k + 2) % 3) * T2;  // diagonal k-1
-    const float* prev2 = diags + ((k + 1) % 3) * T2;  // diagonal k-2
-    const int jlo = max(0, k - T1 + 1);
-    const int jhi = min(k, T2 - 1);
-    for (int j = jlo + threadIdx.x; j <= jhi; j += blockDim.x) {
-      const int i = k - j;
-      const size_t cell = static_cast<size_t>(i) * T2 + j;
-      const float up = i >= 1 ? prev1[j] : kBig;
-      const float left = j >= 1 ? prev1[j - 1] : kBig;
-      const float dg = (i >= 1 && j >= 1) ? prev2[j - 1] : kBig;
-      const float best = k == 0 ? 0.f : fminf(fminf(dg, up), left);
-      const float value = d[cell] + best;
-      cur[j] = value;
-      if constexpr (kStoreCosts) {
-        static_cast<float*>(out)[base + cell] = value;
-      } else {
-        const bool take_diag = dg <= up && dg <= left;
-        const bool take_up = !take_diag && up <= left;
-        static_cast<int8_t*>(out)[base + cell] = static_cast<int8_t>(
-            ((take_diag || take_up) ? 2 : 0) +
-            ((take_diag || !take_up) ? 1 : 0));
-      }
-    }
-    __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int col0 = ch * kChunk;
+    const int cols = min(kChunk, T2 - col0);
+    const int first = lane * W;
+    // this lane's strip in the row it stores next
+    Out* o = static_cast<Out*>(out) + base + col0 + first;
+    dtw_strip::Strip<W, false> state;
+    dtw_strip::chunk_forward<W, false, kVec4, kCarry>(
+        dist + base + col0, T2, T1, cols, ring, pitch, ring_rows, carry,
+        nullptr, ch > 0, ch + 1 < chunks, ch == 0, state,
+        [&](const dtw_strip::Strip<W, false>& strip, unsigned moves) {
+          Out* at = o;
+          o += T2;
+          if constexpr (kStoreCosts) {
+            if constexpr (W == 4) {
+              if (packed) {
+                *reinterpret_cast<float4*>(at) = make_float4(
+                    strip.up[0], strip.up[1], strip.up[2], strip.up[3]);
+                return;
+              }
+            } else if constexpr (W == 2) {
+              if (packed) {
+                *reinterpret_cast<float2*>(at) =
+                    make_float2(strip.up[0], strip.up[1]);
+                return;
+              }
+            }
+#pragma unroll
+            for (int w = 0; w < W; ++w)
+              if (first + w < cols) at[w] = strip.up[w];
+          } else {
+            if constexpr (W == 4) {
+              if (packed) {
+                *reinterpret_cast<uint32_t*>(at) = moves;
+                return;
+              }
+            } else if constexpr (W == 2) {
+              if (packed) {
+                *reinterpret_cast<uint16_t*>(at) =
+                    static_cast<uint16_t>(moves);
+                return;
+              }
+            }
+#pragma unroll
+            for (int w = 0; w < W; ++w)
+              if (first + w < cols)
+                at[w] = static_cast<int8_t>((moves >> (8 * w)) & 0xff);
+          }
+        });
   }
 }
 
-template <bool kStoreCosts>
-int launch(const void* dist, void* out, int B, int T1, int T2,
-           void* stream) {
-  const size_t smem = 3 * sizeof(float) * static_cast<size_t>(T2);
+// One pair per warp. The copy width and the carry are the same for every
+// warp of a launch, so the loop is compiled for each and chosen here.
+template <int W, bool kStoreCosts>
+__device__ __forceinline__ void forward_pairs(const float* __restrict__ dist,
+                                              void* __restrict__ out, int B,
+                                              int T1, int T2, bool vec4,
+                                              int chunks, int pitch,
+                                              int ring_rows,
+                                              int warp_floats) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // the whole warp
+  float* ring = smem + static_cast<size_t>(warp) * warp_floats;
+  if (chunks > 1) {
+    if (vec4)
+      forward_pair<W, kStoreCosts, true, true>(dist, out, b, T1, T2, chunks,
+                                               ring, pitch, ring_rows);
+    else
+      forward_pair<W, kStoreCosts, false, true>(dist, out, b, T1, T2, chunks,
+                                                ring, pitch, ring_rows);
+  } else if (vec4) {
+    forward_pair<W, kStoreCosts, true, false>(dist, out, b, T1, T2, 1, ring,
+                                              pitch, ring_rows);
+  } else {
+    forward_pair<W, kStoreCosts, false, false>(dist, out, b, T1, T2, 1, ring,
+                                               pitch, ring_rows);
+  }
+}
+
+template <int W>
+__global__ void dtw_moves_kernel(const float* __restrict__ dist,
+                                 int8_t* __restrict__ moves, int B, int T1,
+                                 int T2, int vec4, int chunks, int pitch,
+                                 int ring_rows, int warp_floats) {
+  forward_pairs<W, false>(dist, moves, B, T1, T2, vec4 != 0, chunks, pitch,
+                          ring_rows, warp_floats);
+}
+
+template <int W>
+__global__ void dtw_costs_kernel(const float* __restrict__ dist,
+                                 float* __restrict__ costs, int B, int T1,
+                                 int T2, int vec4, int chunks, int pitch,
+                                 int ring_rows, int warp_floats) {
+  forward_pairs<W, true>(dist, costs, B, T1, T2, vec4 != 0, chunks, pitch,
+                         ring_rows, warp_floats);
+}
+
+template <class Out, class Kernel>
+int launch_with(Kernel kernel, const Geometry& g, const void* dist, void* out,
+                int B, int T1, int T2, void* stream) {
+  const size_t smem = dtw_strip::smem_bytes(g);
+  if (smem > dtw_strip::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        dtw_forward_kernel<kStoreCosts>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int threads = min(T1, T2);
-  threads = ((threads + 31) / 32) * 32;
-  threads = max(32, min(threads, 1024));
-  dtw_forward_kernel<kStoreCosts>
-      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(dist), out, T1, T2);
+  const int vec4 = dtw_strip::vector_aligned(
+      dist, static_cast<long long>(T1) * T2, T2, T2);
+  kernel<<<g.blocks, 32 * g.warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dist), static_cast<Out*>(out), B, T1, T2,
+      vec4, g.chunks, g.pitch, g.ring_rows, g.warp_floats);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The strip width is chosen from the shape, here and nowhere else.
+#define DTW_STRIP_DISPATCH(Out, kernel)                                     \
+  switch (g.strip) {                                                        \
+    case 1:                                                                 \
+      return launch_with<Out>(kernel<1>, g, dist, out, B, T1, T2, stream);  \
+    case 2:                                                                 \
+      return launch_with<Out>(kernel<2>, g, dist, out, B, T1, T2, stream);  \
+    default:                                                                \
+      return launch_with<Out>(kernel<4>, g, dist, out, B, T1, T2, stream);  \
+  }
+
+int launch_moves(const void* dist, void* out, int B, int T1, int T2,
+                 void* stream) {
+  const Geometry g = dtw_strip::geometry(B, T1, T2, 1);
+  DTW_STRIP_DISPATCH(int8_t, dtw_moves_kernel)
+}
+
+int launch_costs(const void* dist, void* out, int B, int T1, int T2,
+                 void* stream) {
+  const Geometry g = dtw_strip::geometry(B, T1, T2, 1);
+  DTW_STRIP_DISPATCH(float, dtw_costs_kernel)
+}
+
+#undef DTW_STRIP_DISPATCH
 
 }  // namespace
 
@@ -109,14 +219,20 @@ extern "C" {
 // device. Launches on `stream`; returns cudaGetLastError().
 int dtw_moves_launch(const void* dist, void* moves, int B, int T1, int T2,
                      void* stream) {
-  return launch<false>(dist, moves, B, T1, T2, stream);
+  return launch_moves(dist, moves, B, T1, T2, stream);
 }
 
 // dist (B,T1,T2) f32 -> costs (B,T1,T2) f32, both contiguous on the
 // device. Launches on `stream`; returns cudaGetLastError().
 int dtw_costs_launch(const void* dist, void* costs, int B, int T1, int T2,
                      void* stream) {
-  return launch<true>(dist, costs, B, T1, T2, stream);
+  return launch_costs(dist, costs, B, T1, T2, stream);
+}
+
+// The launch geometry of (B, T1, T2) as 8 ints (dtw_strip::Geometry, in
+// the order of its fields), for the tests of its Python mirror.
+void dtw_moves_geometry(int B, int T1, int T2, int* out) {
+  dtw_strip::geometry_to_ints(dtw_strip::geometry(B, T1, T2, 1), out);
 }
 
 }  // extern "C"

@@ -16,11 +16,19 @@ Four hand-written CUDA kernels, one for each TPU kernel of
   only an availability probe and the tests call it); it completes the
   set.
 
+The forward-DP kernels (stats, moves, costs) share one warp-synchronous
+core, ``csrc/dtw_strip.cuh``: one warp per pair, each lane a strip of
+columns one row behind its left neighbour, the costs prefetched into a
+ring of rows in shared memory. :func:`strip_geometry` mirrors the launch
+geometry their C launch functions choose from the shape, and
+:mod:`abnet3_torch.ops.strip_schedule` emulates the schedule on the CPU.
+
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into
-``abnet3_torch/build/`` (named by the source's hash, so an edited source
-never loads a stale build), and loaded with ``ctypes``. :func:`build`
-compiles every missing library at once, one ``nvcc`` process per source.
+``abnet3_torch/build/`` (named by the hash of the source, the headers it
+includes and the compiler flags, so an edit of any of them never loads a
+stale build), and loaded with ``ctypes``. :func:`build` compiles every
+missing library at once, one ``nvcc`` process per source.
 
 ``dtw_path_plain``, ``dtw_path_stats_plain``, ``dtw_moves_plain`` and
 ``dtw_costs_plain`` are the same functions in plain PyTorch; the CPU
@@ -35,11 +43,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,7 +58,7 @@ from abnet3_torch.ops.dtw import (dtw_costs, moves_from_costs,
 __all__ = ["build", "library_path", "dtw_path_cuda", "dtw_path_plain",
            "dtw_path_stats_cuda", "dtw_path_stats_plain", "dtw_moves_cuda",
            "dtw_moves_plain", "dtw_costs_cuda", "dtw_costs_plain",
-           "SMEM_LIMIT"]
+           "SMEM_LIMIT", "StripGeometry", "strip_geometry", "source_files"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -70,13 +79,71 @@ _EXPORTS = {
     "dtw_path_stats": {
         "dtw_path_stats_launch": ([_P, _LL, _LL] + [_P] * 4 + [_I] * 3
                                   + [_P], _I),
-        "dtw_path_stats_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+        "dtw_path_stats_geometry": ([_I] * 3 + [_P], None),
     },
     "dtw_moves": {
         "dtw_moves_launch": ([_P, _P] + [_I] * 3 + [_P], _I),
         "dtw_costs_launch": ([_P, _P] + [_I] * 3 + [_P], _I),
+        "dtw_moves_geometry": ([_I] * 3 + [_P], None),
     },
 }
+
+#: the constants of ``csrc/dtw_strip.cuh`` that fix the launch geometry
+STRIP_PREFETCH = 8      # rows requested ahead of the wavefront
+STRIP_MAX_WIDTH = 4     # widest strip (columns per lane)
+STRIP_MAX_WARPS = 8     # pairs per block at most
+STRIP_SMS = 132         # H100 SXM
+
+
+class StripGeometry(NamedTuple):
+    """How the strip kernels launch a (B, T1, T2) problem (the fields of
+    ``dtw_strip::Geometry``, in its order)."""
+    strip: int        # W: columns per lane
+    chunks: int       # column chunks of 32 * W
+    lanes: int        # lanes that own a column in the widest chunk
+    pitch: int        # floats between two rows of a warp's ring
+    ring_rows: int    # rows in a warp's ring
+    warp_floats: int  # 4-byte words of shared memory per warp
+    warps: int        # pairs (warps) per block
+    blocks: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.warps * self.warp_floats
+
+    def steps(self, rows: int, cols: int) -> int:
+        """Dependent steps of a pair with ``rows`` x ``cols`` cells: each
+        chunk takes rows + (its lanes) - 1."""
+        chunk = 32 * self.strip
+        total = 0
+        for col0 in range(0, cols, chunk):
+            lanes = -(-min(chunk, cols - col0) // self.strip)
+            total += rows + lanes - 1
+        return total
+
+
+def strip_geometry(B: int, T1: int, T2: int,
+                   carry_words: int = 1) -> StripGeometry:
+    """The launch geometry the C launch functions choose from the shape
+    (``dtw_strip::geometry`` in ``csrc/dtw_strip.cuh``): ``carry_words``
+    values per row go from a column chunk to the next (1: D, for moves
+    and costs; 2: D and the chain length, for the path stats)."""
+    strip = 1 if T2 <= 32 else 2 if T2 <= 64 else STRIP_MAX_WIDTH
+    chunk = 32 * strip
+    chunks = -(-T2 // chunk)
+    lanes = -(-min(T2, chunk) // strip)
+    pitch = -(-lanes * strip // 4) * 4
+    ring_rows = lanes + STRIP_PREFETCH
+    warp_floats = ring_rows * pitch
+    if chunks > 1:
+        warp_floats += -(-T1 * carry_words // 4) * 4
+    warps = 1
+    while warps < STRIP_MAX_WARPS and warps * STRIP_SMS < B:
+        warps *= 2
+    while warps > 1 and 4 * warps * warp_floats > SMEM_LIMIT:
+        warps //= 2
+    return StripGeometry(strip, chunks, lanes, pitch, ring_rows, warp_floats,
+                         warps, -(-B // warps))
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -95,12 +162,37 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes,
+    directly or through another header."""
+    files, todo = [], [source_path(name)]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as fh:
+            text = fh.read()
+        for inc in _INCLUDE.findall(text):
+            header = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(header):
+                todo.append(os.path.normpath(header))
+    return files
+
+
 def library_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` is built: named by the
-    hash of that source alone."""
-    with open(source_path(name), "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    hash of everything that is compiled into it (the source, the headers
+    of ``csrc/`` it includes, and the compiler flags)."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as fh:
+            digest.update(b"\0" + os.path.basename(path).encode() + b"\0"
+                          + fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _load(name: str, path: str) -> ctypes.CDLL:
@@ -182,6 +274,16 @@ def _check_lengths(dist: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor,
         raise ValueError("dist, n1 and n2 must be on the same device")
 
 
+def _check_strip_fits(B: int, T1: int, T2: int, carry_words: int) -> None:
+    """Raise if one pair of the strip kernels needs more shared memory
+    than a block has (a wide plane carries a column of T1 values)."""
+    if T2 <= 32 * STRIP_MAX_WIDTH:      # one chunk: a ring and no carry
+        return
+    if strip_geometry(B, T1, T2, carry_words).smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"T1={T1} exceeds the shared memory of the "
+                         "kernel's column carry")
+
+
 def dtw_path_cuda(dist: torch.Tensor, n1: torch.Tensor,
                   n2: torch.Tensor) -> torch.Tensor:
     """Launch the path-mask kernel: dist (B, T1, T2) float32, n1/n2 (B,)
@@ -248,10 +350,8 @@ def dtw_path_stats_cuda(dist: torch.Tensor, n1: torch.Tensor,
     if T2 > 1 and dist.stride(2) != 1:
         raise ValueError("dist's last dimension must be contiguous")
     _check_lengths(dist, n1, n2, B)
+    _check_strip_fits(B, T1, T2, carry_words=2)
     lib = _lib("dtw_path_stats")
-    if lib.dtw_path_stats_smem_bytes(T1, T2) > SMEM_LIMIT:
-        raise ValueError(f"T1={T1} exceeds the kernel's shared-memory "
-                         "diagonals")
     psum = torch.empty(B, dtype=torch.float32, device=dist.device)
     plen = torch.empty(B, dtype=torch.float32, device=dist.device)
     if B == 0 or T1 == 0 or T2 == 0:
@@ -321,9 +421,7 @@ def _forward_dp(dist: torch.Tensor, out_dtype, name: str,
         raise ValueError(f"dist must be (B, T1, T2), got {tuple(dist.shape)}")
     B, T1, T2 = dist.shape
     _check(dist, "dist", torch.float32, (B, T1, T2))
-    if 3 * 4 * T2 > SMEM_LIMIT:
-        raise ValueError(f"T2={T2} exceeds the kernel's shared-memory "
-                         "diagonals")
+    _check_strip_fits(B, T1, T2, carry_words=1)
     lib = _lib("dtw_moves")
     out = torch.empty((B, T1, T2), dtype=out_dtype, device=dist.device)
     if B == 0 or T1 == 0 or T2 == 0:

@@ -33,7 +33,8 @@ def _inputs(kind, shape, device, seed=6):
     n1 = torch.randint(1, T1 + 1, (B,), generator=g, dtype=torch.int32)
     n2 = torch.randint(1, T2 + 1, (B,), generator=g, dtype=torch.int32)
     n1[0], n2[0] = T1, T2
-    n1[1] = 1
+    if B > 1:
+        n1[1] = 1
     return dist.to(device), n1.to(device), n2.to(device)
 
 
@@ -75,7 +76,8 @@ def _stats_inputs(kind, layout, shape, device, seed=7):
     n1 = torch.randint(1, T1 + 1, (B,), generator=g, dtype=torch.int32)
     n2 = torch.randint(1, T2 + 1, (B,), generator=g, dtype=torch.int32)
     n1[0], n2[0] = T1, T2
-    n1[1], n2[2] = 1, 1
+    if B > 2:
+        n1[1], n2[2] = 1, 1
     return dist.to(device), n1.to(device), n2.to(device)
 
 
@@ -83,7 +85,15 @@ def _stats_inputs(kind, layout, shape, device, seed=7):
 @pytest.mark.parametrize("kind", ["angular", "ties"])
 @pytest.mark.parametrize("layout,shape", [
     ("rows", (96, 256, 96)), ("rows", (96, 64, 40)), ("rows", (33, 16, 65)),
-    ("rows", (300, 8, 200)), ("batch", (64, 96, 96))])
+    ("rows", (300, 8, 200)), ("batch", (64, 96, 96)),
+    # T2 not a multiple of 32 or of 4; one pair; one pair past 8 blocks'
+    # worth; each strip width (1, 2 and 4: T2 = 32, 64, 96, 128); the
+    # first shape past the widest strip (two column chunks); a wide
+    # batched plane
+    ("rows", (50, 16, 37)), ("rows", (33, 8, 100)), ("batch", (16, 50, 37)),
+    ("batch", (1, 40, 96)), ("rows", (40, 1, 96)), ("rows", (24, 1025, 32)),
+    ("rows", (40, 64, 64)), ("rows", (40, 64, 128)), ("rows", (40, 8, 129)),
+    ("batch", (4, 70, 300))])
 def test_dtw_path_stats_kernel_matches_plain(cuda_device, kind, layout,
                                              shape):
     """Bit-exact: plen and psum equal."""
@@ -100,6 +110,57 @@ def test_dtw_path_stats_kernel_matches_plain(cuda_device, kind, layout,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout,shape", [
+    ("rows", (96, 64, 97)), ("batch", (64, 96, 97)), ("rows", (40, 8, 130)),
+    ("batch", (8, 50, 38))])
+def test_dtw_path_stats_kernel_reads_a_misaligned_view(cuda_device, layout,
+                                                       shape):
+    """``dist[..., 1:]``: base and row stride off the 16-byte grid, read
+    in place on the kernel's 4-byte path, with the same bits."""
+    full, n1, n2 = _stats_inputs("angular", layout, shape, cuda_device)
+    dist = full[..., 1:]
+    n2 = torch.clamp(n2, max=dist.shape[2])
+    assert dist.data_ptr() % 16 != 0 and not dist.is_contiguous()
+    rows = layout == "rows"
+    psum_p, plen_p = cuda_dtw.dtw_path_stats_plain(
+        dist.permute(1, 0, 2) if rows else dist, n1, n2)
+    psum, plen = cuda_dtw.dtw_path_stats_cuda(dist, n1, n2, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(plen, plen_p)
+    assert torch.equal(psum, psum_p)
+    # and the aligned copy of the same cells
+    psum_c, plen_c = cuda_dtw.dtw_path_stats_cuda(dist.contiguous(), n1, n2,
+                                                  rows=rows)
+    assert torch.equal(plen, plen_c) and torch.equal(psum, psum_c)
+
+
+@pytest.mark.cuda
+def test_dtw_path_stats_kernel_lengths_outside_the_plane(cuda_device):
+    dist, n1, n2 = _stats_inputs("angular", "batch", (6, 20, 40),
+                                 cuda_device)
+    n1[3], n2[4], n1[5] = 0, 41, 21
+    psum, plen = cuda_dtw.dtw_path_stats_cuda(dist, n1, n2)
+    psum_p, plen_p = cuda_dtw.dtw_path_stats_plain(dist, n1, n2)
+    assert torch.equal(psum, psum_p) and torch.equal(plen, plen_p)
+    assert psum[3:].tolist() == [0, 0, 0] and plen[3:].tolist() == [0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1024, 96, 96), (32, 128, 128), (64, 96, 96), (1025, 50, 37),
+    (1, 64, 100), (4, 70, 129), (4, 1024, 1024), (2000, 9000, 200)])
+def test_strip_geometry_mirrors_the_launch_functions(cuda_device, shape):
+    """The Python mirror against the C functions' own choice."""
+    import ctypes
+    out = (ctypes.c_int * 8)()
+    for name, fn, words in (("dtw_moves", "dtw_moves_geometry", 1),
+                            ("dtw_path_stats", "dtw_path_stats_geometry",
+                             2)):
+        getattr(cuda_dtw._lib(name), fn)(*shape, out)
+        assert tuple(out) == tuple(cuda_dtw.strip_geometry(*shape, words))
+
+
+@pytest.mark.cuda
 def test_stats_dispatchers_launch_kernel_on_card(cuda_device):
     from abnet3_torch.ops.dtw import dtw_path_stats, dtw_path_stats_rows
     dist, n1, n2 = _stats_inputs("angular", "batch", (8, 24, 20),
@@ -112,8 +173,13 @@ def test_stats_dispatchers_launch_kernel_on_card(cuda_device):
         assert torch.equal(x, y)
 
 
+# the buckets of the gather path, non-square planes, a long bucket; then
+# T2 not a multiple of 32 or of 4, one pair, more pairs than 8 blocks'
+# worth, each strip width (1, 2 and 4: T2 = 32, 64, 96, 128), the first
+# shape past the widest strip (two column chunks) and a ragged last chunk
 FORWARD_SHAPES = [(32, 128, 128), (64, 96, 96), (7, 40, 72), (5, 72, 40),
-                  (2, 1024, 1024)]
+                  (2, 1024, 1024), (5, 50, 37), (3, 33, 100), (1, 128, 128),
+                  (1025, 16, 32), (4, 20, 64), (2, 70, 129), (3, 40, 301)]
 
 
 @pytest.mark.cuda

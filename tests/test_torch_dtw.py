@@ -142,8 +142,9 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 
 def test_build_makes_one_hashed_library_per_source(fake_nvcc):
-    """Each csrc/*.cu has its own library, named by its own hash; one
-    nvcc per source; a second build compiles nothing."""
+    """Each csrc/*.cu has its own library, named by the hash of what is
+    compiled into it (the compiler flags, the source and the csrc headers
+    it includes); one nvcc per source; a second build compiles nothing."""
     import hashlib
     import os
     names = sorted(cuda_dtw._EXPORTS)
@@ -154,8 +155,14 @@ def test_build_makes_one_hashed_library_per_source(fake_nvcc):
     paths = {n: cuda_dtw.library_path(n) for n in names}
     assert len(set(paths.values())) == len(names)
     for n in names:
-        with open(cuda_dtw.source_path(n), "rb") as fh:
-            digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+        files = cuda_dtw.source_files(n)
+        assert files[0] == cuda_dtw.source_path(n)
+        key = hashlib.sha1(" ".join(cuda_dtw.NVCC_FLAGS).encode())
+        for path in files:
+            with open(path, "rb") as fh:
+                key.update(b"\0" + os.path.basename(path).encode() + b"\0"
+                           + fh.read())
+        digest = key.hexdigest()[:12]
         assert os.path.basename(paths[n]) == f"lib{n}-{digest}.so"
         assert info[n]["compiled"] and info[n]["path"] == paths[n]
         assert os.path.exists(paths[n])

@@ -19,6 +19,7 @@ SLICE_MODULES = [
     "abnet3_torch.weights", "abnet3_torch.models",
     "abnet3_torch.models.siamese", "abnet3_torch.loss",
     "abnet3_torch.ops", "abnet3_torch.ops.dtw", "abnet3_torch.ops.cuda_dtw",
+    "abnet3_torch.ops.strip_schedule", "abnet3_torch.ops.kernel_bench",
     "abnet3_torch.ops.bank", "abnet3_torch.parallel",
     "abnet3_torch.parallel.mesh", "abnet3_torch.dataloader",
     "abnet3_torch.trainer", "abnet3_torch.sampler",
