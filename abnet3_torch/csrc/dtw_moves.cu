@@ -229,7 +229,7 @@ int dtw_costs_launch(const void* dist, void* costs, int B, int T1, int T2,
   return launch_costs(dist, costs, B, T1, T2, stream);
 }
 
-// The launch geometry of (B, T1, T2) as 8 ints (dtw_strip::Geometry, in
+// The launch geometry of (B, T1, T2) as 10 ints (dtw_strip::Geometry, in
 // the order of its fields), for the tests of its Python mirror.
 void dtw_moves_geometry(int B, int T1, int T2, int* out) {
   dtw_strip::geometry_to_ints(dtw_strip::geometry(B, T1, T2, 1), out);

@@ -184,7 +184,7 @@ int dtw_path_stats_launch(const void* dist, long long batch_stride,
 #undef DTW_STATS_LAUNCH
 }
 
-// The launch geometry of (B, T1, T2) as 8 ints (dtw_strip::Geometry, in
+// The launch geometry of (B, T1, T2) as 10 ints (dtw_strip::Geometry, in
 // the order of its fields), for the tests of its Python mirror.
 void dtw_path_stats_geometry(int B, int T1, int T2, int* out) {
   dtw_strip::geometry_to_ints(dtw_strip::geometry(B, T1, T2, 2), out);

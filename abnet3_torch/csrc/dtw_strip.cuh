@@ -1,6 +1,6 @@
 // The warp-synchronous forward DP of DTW for Hopper (sm_90a): the core
-// that csrc/dtw_moves.cu (moves, costs) and csrc/dtw_path_stats.cu (path
-// sum and length) share.
+// that csrc/dtw_moves.cu (moves, costs), csrc/dtw_path_stats.cu (path sum
+// and length) and csrc/dtw_path.cu (path mask) share.
 //
 // One warp owns one pair. Lane l owns a strip of W neighbouring columns
 // and walks down the rows one step behind lane l-1: at step s it computes
@@ -62,19 +62,26 @@ constexpr size_t kSmemLimit = 232448;  // shared memory a block may opt in to
 
 // The launch geometry of a (B, T1, T2) problem; carry_words is the number
 // of 4-byte values per row that a chunk hands to the next (1: D; 2: D and
-// the chain length). ops/cuda_dtw.py strip_geometry mirrors it.
+// the chain length). With move_plane (the path kernel) each warp also
+// keeps the int8 moves of its pair, T1 rows of move_pitch bytes, after
+// its ring and carry: in shared memory when one warp's share still fits
+// a block, else in a global scratch that the caller allocates (B planes
+// of T1 * move_pitch bytes). ops/cuda_dtw.py strip_geometry mirrors it.
 struct Geometry {
-  int strip;        // W: columns per lane
-  int chunks;       // column chunks of 32 * W
-  int lanes;        // lanes that own a column in the widest chunk
-  int pitch;        // floats between two rows of the ring
-  int ring_rows;    // rows in a warp's ring
-  int warp_floats;  // 4-byte words of shared memory per warp
-  int warps;        // pairs (warps) per block
+  int strip;          // W: columns per lane
+  int chunks;         // column chunks of 32 * W
+  int lanes;          // lanes that own a column in the widest chunk
+  int pitch;          // floats between two rows of the ring
+  int ring_rows;      // rows in a warp's ring
+  int warp_floats;    // 4-byte words of shared memory per warp
+  int warps;          // pairs (warps) per block
   int blocks;
+  int move_pitch;     // bytes between two rows of the move plane (0: none)
+  int moves_in_smem;  // 1: the move plane is in shared memory
 };
 
-inline Geometry geometry(int B, int T1, int T2, int carry_words) {
+inline Geometry geometry(int B, int T1, int T2, int carry_words,
+                         bool move_plane = false) {
   Geometry g;
   // 1, 2 or 4 columns a lane, the least that covers T2 with 32 lanes
   g.strip = T2 <= 32 ? 1 : (T2 <= 64 ? 2 : kMaxStrip);
@@ -86,6 +93,18 @@ inline Geometry geometry(int B, int T1, int T2, int carry_words) {
   g.ring_rows = g.lanes + kPrefetch;
   g.warp_floats = g.ring_rows * g.pitch +
                   (g.chunks > 1 ? ((T1 * carry_words + 3) / 4) * 4 : 0);
+  // a row of moves holds whole strips (a lane stores its W moves as one
+  // word) and starts on 4 bytes; the plane ends on 16, like the ring
+  g.move_pitch = move_plane ? ((T2 + 3) / 4) * 4 : 0;
+  g.moves_in_smem = 0;
+  if (move_plane) {
+    const size_t plane_floats =
+        (static_cast<size_t>(T1) * g.move_pitch / 4 + 3) / 4 * 4;
+    if ((g.warp_floats + plane_floats) * 4 <= kSmemLimit) {
+      g.warp_floats += static_cast<int>(plane_floats);
+      g.moves_in_smem = 1;
+    }
+  }
   // enough pairs per block that B pairs are resident in one wave, as few
   // as that takes (a small batch spreads over the SMs)
   g.warps = 1;
@@ -110,6 +129,8 @@ inline void geometry_to_ints(const Geometry& g, int* out) {
   out[5] = g.warp_floats;
   out[6] = g.warps;
   out[7] = g.blocks;
+  out[8] = g.move_pitch;
+  out[9] = g.moves_in_smem;
 }
 
 // 16-byte copies need the base and every row start on 16 bytes and whole

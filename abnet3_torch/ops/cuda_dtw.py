@@ -16,12 +16,14 @@ Four hand-written CUDA kernels, one for each TPU kernel of
   only an availability probe and the tests call it); it completes the
   set.
 
-The forward-DP kernels (stats, moves, costs) share one warp-synchronous
-core, ``csrc/dtw_strip.cuh``: one warp per pair, each lane a strip of
-columns one row behind its left neighbour, the costs prefetched into a
-ring of rows in shared memory. :func:`strip_geometry` mirrors the launch
-geometry their C launch functions choose from the shape, and
-:mod:`abnet3_torch.ops.strip_schedule` emulates the schedule on the CPU.
+All four kernels run their forward DP on one warp-synchronous core,
+``csrc/dtw_strip.cuh``: one warp per pair, each lane a strip of columns
+one row behind its left neighbour, the costs prefetched into a ring of
+rows in shared memory. The path kernel keeps the moves of its pair in a
+per-warp move plane and walks them back one row a step.
+:func:`strip_geometry` mirrors the launch geometry the C launch functions
+choose from the shape, and :mod:`abnet3_torch.ops.strip_schedule`
+emulates the schedule, and the path kernel's walk, on the CPU.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into
@@ -74,7 +76,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _EXPORTS = {
     "dtw_path": {
         "dtw_path_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
-        "dtw_path_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "dtw_path_geometry": ([_I] * 3 + [_P], None),
     },
     "dtw_path_stats": {
         "dtw_path_stats_launch": ([_P, _LL, _LL] + [_P] * 4 + [_I] * 3
@@ -98,14 +100,16 @@ STRIP_SMS = 132         # H100 SXM
 class StripGeometry(NamedTuple):
     """How the strip kernels launch a (B, T1, T2) problem (the fields of
     ``dtw_strip::Geometry``, in its order)."""
-    strip: int        # W: columns per lane
-    chunks: int       # column chunks of 32 * W
-    lanes: int        # lanes that own a column in the widest chunk
-    pitch: int        # floats between two rows of a warp's ring
-    ring_rows: int    # rows in a warp's ring
-    warp_floats: int  # 4-byte words of shared memory per warp
-    warps: int        # pairs (warps) per block
+    strip: int          # W: columns per lane
+    chunks: int         # column chunks of 32 * W
+    lanes: int          # lanes that own a column in the widest chunk
+    pitch: int          # floats between two rows of a warp's ring
+    ring_rows: int      # rows in a warp's ring
+    warp_floats: int    # 4-byte words of shared memory per warp
+    warps: int          # pairs (warps) per block
     blocks: int
+    move_pitch: int     # bytes between two rows of the move plane (0: none)
+    moves_in_smem: int  # 1: the move plane is in shared memory
 
     @property
     def smem_bytes(self) -> int:
@@ -122,12 +126,15 @@ class StripGeometry(NamedTuple):
         return total
 
 
-def strip_geometry(B: int, T1: int, T2: int,
-                   carry_words: int = 1) -> StripGeometry:
+def strip_geometry(B: int, T1: int, T2: int, carry_words: int = 1,
+                   move_plane: bool = False) -> StripGeometry:
     """The launch geometry the C launch functions choose from the shape
     (``dtw_strip::geometry`` in ``csrc/dtw_strip.cuh``): ``carry_words``
-    values per row go from a column chunk to the next (1: D, for moves
-    and costs; 2: D and the chain length, for the path stats)."""
+    values per row go from a column chunk to the next (1: D, for moves,
+    costs and the path mask; 2: D and the chain length, for the path
+    stats). ``move_plane`` (the path mask): each warp also keeps its
+    pair's moves, T1 rows of ``move_pitch`` bytes, in shared memory if one
+    warp's share fits a block, else in a global scratch of B planes."""
     strip = 1 if T2 <= 32 else 2 if T2 <= 64 else STRIP_MAX_WIDTH
     chunk = 32 * strip
     chunks = -(-T2 // chunk)
@@ -137,13 +144,20 @@ def strip_geometry(B: int, T1: int, T2: int,
     warp_floats = ring_rows * pitch
     if chunks > 1:
         warp_floats += -(-T1 * carry_words // 4) * 4
+    move_pitch = -(-T2 // 4) * 4 if move_plane else 0
+    moves_in_smem = 0
+    if move_plane:
+        plane_floats = -(-(T1 * move_pitch // 4) // 4) * 4
+        if 4 * (warp_floats + plane_floats) <= SMEM_LIMIT:
+            warp_floats += plane_floats
+            moves_in_smem = 1
     warps = 1
     while warps < STRIP_MAX_WARPS and warps * STRIP_SMS < B:
         warps *= 2
     while warps > 1 and 4 * warps * warp_floats > SMEM_LIMIT:
         warps //= 2
     return StripGeometry(strip, chunks, lanes, pitch, ring_rows, warp_floats,
-                         warps, -(-B // warps))
+                         warps, -(-B // warps), move_pitch, moves_in_smem)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -274,36 +288,39 @@ def _check_lengths(dist: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor,
         raise ValueError("dist, n1 and n2 must be on the same device")
 
 
-def _check_strip_fits(B: int, T1: int, T2: int, carry_words: int) -> None:
-    """Raise if one pair of the strip kernels needs more shared memory
-    than a block has (a wide plane carries a column of T1 values)."""
-    if T2 <= 32 * STRIP_MAX_WIDTH:      # one chunk: a ring and no carry
-        return
-    if strip_geometry(B, T1, T2, carry_words).smem_bytes > SMEM_LIMIT:
+def _check_strip_fits(B: int, T1: int, T2: int, carry_words: int,
+                      move_plane: bool = False) -> StripGeometry:
+    """The launch geometry; raises if one pair of the strip kernels needs
+    more shared memory than a block has (a wide plane carries a column of
+    T1 values; a move plane that does not fit goes to a global scratch
+    instead)."""
+    geo = strip_geometry(B, T1, T2, carry_words, move_plane)
+    if geo.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"T1={T1} exceeds the shared memory of the "
                          "kernel's column carry")
+    return geo
 
 
 def dtw_path_cuda(dist: torch.Tensor, n1: torch.Tensor,
                   n2: torch.Tensor) -> torch.Tensor:
     """Launch the path-mask kernel: dist (B, T1, T2) float32, n1/n2 (B,)
     int32, all contiguous on one CUDA device -> mask (B, T1, T2) float32.
+    Where the pair's move plane does not fit in shared memory (about 200k
+    cells), the moves go to a global scratch allocated here.
     ``dtw_path_cuda.launches`` counts the launches."""
     if dist.dim() != 3:
         raise ValueError(f"dist must be (B, T1, T2), got {tuple(dist.shape)}")
     B, T1, T2 = dist.shape
     _check(dist, "dist", torch.float32, (B, T1, T2))
     _check_lengths(dist, n1, n2, B)
-    if 3 * 4 * T2 > SMEM_LIMIT:
-        raise ValueError(f"T2={T2} exceeds the kernel's shared-memory "
-                         "diagonals")
+    geo = _check_strip_fits(B, T1, T2, carry_words=1, move_plane=True)
     lib = _lib("dtw_path")
     out = torch.empty_like(dist)
     if B == 0 or T1 == 0 or T2 == 0:
         return out
     moves = None
-    if lib.dtw_path_smem_bytes(T1, T2, 1) > SMEM_LIMIT:
-        moves = torch.empty((B, T1, T2), dtype=torch.int8,
+    if not geo.moves_in_smem:
+        moves = torch.empty((B, T1, geo.move_pitch), dtype=torch.int8,
                             device=dist.device)
     with torch.cuda.device(dist.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -3,11 +3,12 @@ sources against each other in one process on one card.
 
     python -m abnet3_torch.ops.kernel_bench --old-csrc DIR [--reps 100]
 
-``DIR`` holds another version of ``dtw_moves.cu`` and ``dtw_path_stats.cu``
-(say, those of an earlier commit, unpacked with ``git archive``) with the
-same C launch functions. Both versions are compiled with the package's
-compiler flags and launched through ``ctypes`` on the same inputs, in the
-order old, new, new, old at each shape, and timed by the kernels' own
+``DIR`` holds another version of ``dtw_moves.cu``, ``dtw_path_stats.cu``,
+``dtw_path.cu`` and the headers they include (say, the
+``abnet3_torch/csrc`` of an earlier commit, unpacked with ``git
+archive``) with the same C launch functions. Both versions are compiled
+with the package's compiler flags and launched through ``ctypes`` on the
+same inputs, in the order old, new, new, old at each shape, and timed by the kernels' own
 durations under ``torch.profiler`` (``device_ms``), L2-warm (one input,
 launched again and again) and L2-cold (a rotation over copies of the input
 that together exceed the 50 MB L2 several times), and by a CUDA graph of
@@ -133,10 +134,11 @@ def cold_copies(t: torch.Tensor) -> List[torch.Tensor]:
 
 
 def _compile(csrc: str) -> Dict[str, ctypes.CDLL]:
-    """The libraries of ``csrc``'s dtw_moves.cu and dtw_path_stats.cu,
-    built beside the package's own, with their launch functions bound."""
+    """The libraries of ``csrc``'s dtw_moves.cu, dtw_path_stats.cu and
+    dtw_path.cu, built beside the package's own, with their launch
+    functions bound."""
     libs = {}
-    for name in ("dtw_moves", "dtw_path_stats"):
+    for name in ("dtw_moves", "dtw_path_stats", "dtw_path"):
         src = os.path.join(csrc, f"{name}.cu")
         digest = hashlib.sha1(os.path.abspath(csrc).encode())
         for f in sorted(os.listdir(csrc)):
@@ -198,6 +200,40 @@ def _stats_launcher(lib):
     return launch
 
 
+def _path_launcher(lib):
+    """launch(dist, n1, n2, out) of a path-mask library, unchecked, with
+    no move scratch (the shapes timed keep the moves in shared memory in
+    both versions)."""
+    call = lib.dtw_path_launch
+
+    def launch(dist, n1, n2, out=None):
+        B, T1, T2 = dist.shape
+        if out is None:
+            out = torch.empty_like(dist)
+        err = call(dist.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+                   out.data_ptr(), None, B, T1, T2,
+                   torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"dtw_path_launch: CUDA error {err}")
+        return out
+    return launch
+
+
+def _path_lengths(gen, B, T1, T2):
+    """Ragged lengths on the card with the full (T1, T2) first, then 1
+    row, then 1 column: the lengths ``chip_smoke.py`` times the path
+    kernel on."""
+    n1 = torch.randint(1, T1 + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    n2 = torch.randint(1, T2 + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    n1[0], n2[0] = T1, T2
+    if B > 2:
+        n1[1], n2[1] = 1, T2
+        n1[2], n2[2] = T1, 1
+    return n1, n2
+
+
 def _emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -245,6 +281,19 @@ def main(argv=None):
             _time_versions(name, (B, T, T), versions,
                            lambda launch, d: launch(d, out), dists,
                            args.reps)
+
+    # the path mask at the matrix step's buckets
+    for B, T in ((32, 96), (64, 64)):
+        dists = cold_copies(_angular(gen, B, T, T))
+        n1, n2 = _path_lengths(gen, B, T, T)
+        versions = {v: _path_launcher(libs[v]["dtw_path"]) for v in libs}
+        if not torch.equal(versions["old"](dists[0], n1, n2),
+                           versions["new"](dists[0], n1, n2)):
+            raise AssertionError("dtw_path: the versions differ")
+        out = torch.empty_like(dists[0])
+        _time_versions("dtw_path", (B, T, T), versions,
+                       lambda launch, d: launch(d, n1, n2, out), dists,
+                       args.reps)
 
     # the ABX tile row: one anchor of 96 frames against 1,024 tokens of
     # 20-96 frames, rows layout

@@ -9,10 +9,13 @@ columns run in column chunks whose last column is carried, and the rows
 of costs go through a ring of ``lanes + prefetch`` slots. A CUDA kernel
 cannot run without a card, so this module repeats that schedule with numpy
 in float32, register by register: :func:`emulate_strip` gives the costs,
-moves, chain lengths and the step at which each cell was computed, and
-:func:`ring_schedule` replays the ring's slots. The tests hold both
-against the plain versions, which is the rehearsal of the kernels' index
-arithmetic that a machine without a card allows.
+moves, chain lengths and the step at which each cell was computed,
+:func:`ring_schedule` replays the ring's slots, and :func:`emulate_path`
+repeats what ``csrc/dtw_path.cu`` does around the core: the move plane's
+words and addresses, the walk's lane keys and max reduction, and the row
+writes. The tests hold them against the plain versions, which is the
+rehearsal of the kernels' index arithmetic that a machine without a card
+allows.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import numpy as np
 
 from abnet3_torch.ops.cuda_dtw import STRIP_PREFETCH, strip_geometry
 
-__all__ = ["StripRun", "emulate_strip", "ring_schedule"]
+__all__ = ["StripRun", "emulate_strip", "ring_schedule", "PathRun",
+           "emulate_path"]
 
 _BIG = np.float32(1e30)
 _LANES = 32
@@ -177,3 +181,121 @@ def ring_schedule(rows: int, lanes: int, ring_rows: int,
             held[fill] = s + prefetch
         fill = 0 if fill + 1 == ring_rows else fill + 1
     return reads
+
+
+class PathRun(NamedTuple):
+    """What one emulated launch of the path kernel did."""
+    mask: np.ndarray     # (B, T1, T2) float32, the mask as written
+    writes: np.ndarray   # (B, T1, T2) int32, times each element was written
+    plane: np.ndarray    # (B, T1 * move_pitch) uint8, the move plane
+    stored: np.ndarray   # (B, T1 * move_pitch) int32, move stores per byte
+    keys: np.ndarray     # (B, T1) int64, the key the walk left in each row
+    runs: np.ndarray     # (B, T1, 2) int64, [lo, hi] of each row's run
+    walk_steps: np.ndarray  # (B,) int64, cells the walk visited
+
+
+def emulate_path(dist: np.ndarray, n1: np.ndarray, n2: np.ndarray,
+                 garbage: int = 3) -> PathRun:
+    """Run the path kernel's schedule on dist (B, T1, T2) float32 with
+    lengths n1/n2 (B,). The forward pass is :func:`emulate_strip` over
+    each pair's n1 x n2 cells; each lane stores the W moves of each row of
+    its strip as one word at ``row * move_pitch + col0 + lane * W`` of the
+    pair's plane. Columns of a lane's last strip past n2-1 hold a move of
+    costs the ring never received: they are stored as ``garbage`` (3, a
+    diagonal move, by default) so that a walk that read one would go
+    wrong. Then lane 0 walks the plane from (n1-1, n2-1) one cell a step
+    and leaves in the first word of each row it leaves the key 2 lo +
+    (move is diag), -1 past column 0; rows above a walk that left the
+    plane get -1. Last the warp writes the rows from the keys, 16 bytes a
+    lane where T2 % 4 == 0, else 4; rows from n1 on (all rows of a pair
+    with lengths outside [1, T]) are zeros written first."""
+    dist = np.ascontiguousarray(dist, dtype=np.float32)
+    B, T1, T2 = dist.shape
+    n1 = np.asarray(n1, dtype=np.int64)
+    n2 = np.asarray(n2, dtype=np.int64)
+    geo = strip_geometry(B, T1, T2, 1, move_plane=True)
+    W, chunk, pitch = geo.strip, 32 * geo.strip, geo.move_pitch
+    fwd = emulate_strip(dist, n1, n2)
+    valid = (n1 >= 1) & (n1 <= T1) & (n2 >= 1) & (n2 <= T2)
+
+    plane = np.zeros((B, T1 * pitch), np.uint8)
+    stored = np.zeros((B, T1 * pitch), np.int32)
+    flat = np.zeros((B, T1 * T2), np.float32)
+    writes = np.zeros((B, T1 * T2), np.int32)
+    keys = np.full((B, T1), -1, np.int64)
+    runs = np.zeros((B, T1, 2), np.int64)
+    runs[:, :, 1] = -1
+    walk_steps = np.zeros(B, np.int64)
+    width = 4 if T2 % 4 == 0 else 1      # floats a lane stores at once
+
+    def warp_store(b, start, n, lo=0, hi=-1):
+        """The warp's stores of n floats from ``start`` (whole rows): lane
+        l takes the pieces l, l + 32, ... of ``width`` floats; an element
+        of column lo..hi of its row is 1, any other 0."""
+        for ln in range(_LANES):
+            pieces = np.arange(ln * width, n, _LANES * width)
+            at = (start + pieces[:, None] + np.arange(width)).ravel()
+            assert (at < start + n).all(), "a piece leaves the rows"
+            col = at % T2
+            flat[b, at] = ((col >= lo) & (col <= hi)) * 1.0
+            np.add.at(writes[b], at, 1)
+
+    def put_key(b, row, key):
+        """The int32 key at the first word of the row (little endian)."""
+        plane[b, row * pitch:row * pitch + 4] = np.array(
+            [key], "<i4").view(np.uint8)
+
+    def key_of(b, row):
+        return int(plane[b, row * pitch:row * pitch + 4].view("<i4")[0])
+
+    for b in range(B):
+        a, c = (int(n1[b]), int(n2[b])) if valid[b] else (0, 0)
+        # the rows the path cannot reach, zeroed first by the warp
+        warp_store(b, a * T2, (T1 - a) * T2)
+        if not valid[b]:
+            continue
+        # the forward pass: each owning lane's word of each row
+        for col0 in range(0, c, chunk):
+            owners = -(-min(chunk, c - col0) // W)
+            # (lane, w): the columns of each owning lane's word
+            cols = col0 + np.arange(owners)[:, None] * W + np.arange(W)
+            assert cols.max() < pitch, "a word leaves its row"
+            rows = np.arange(a)[:, None, None]
+            at = rows * pitch + cols[None]
+            word = np.where(cols[None] < c,
+                            fwd.moves[b, rows, np.minimum(cols, T2 - 1)[None]],
+                            garbage)
+            plane[b, at] = word
+            np.add.at(stored[b], at.ravel(), 1)
+        # the walk, by lane 0: a row's key replaces its first word when
+        # the walk leaves it, so a read must never meet a keyed row
+        i, j, left_rows = a - 1, c - 1, set()
+        while True:
+            assert i not in left_rows, "the walk read a keyed row"
+            m = int(plane[b, i * pitch + j])
+            walk_steps[b] += 1
+            if m == 1:
+                j -= 1
+                if j >= 0:
+                    continue
+                put_key(b, i, -1)
+                break
+            diag = int(m == 3)
+            put_key(b, i, 2 * j + diag)
+            left_rows.add(i)
+            j -= diag
+            if i == 0 or j < 0:
+                break
+            i -= 1
+        for row in range(i):           # the rows above a walk that left
+            put_key(b, row, -1)
+        # the rows of the mask, from the keys
+        hi = c - 1
+        for row in range(a - 1, -1, -1):
+            k = key_of(b, row)
+            lo = max(k >> 1, 0)
+            keys[b, row], runs[b, row] = k, (lo, hi)
+            warp_store(b, row * T2, T2, lo, hi)
+            hi = (k >> 1) - (k & 1)
+    return PathRun(flat.reshape(B, T1, T2), writes.reshape(B, T1, T2),
+                   plane, stored, keys, runs, walk_steps)

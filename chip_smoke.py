@@ -8,13 +8,15 @@ Phases, each printing JSON lines:
 
 1. device: requires CUDA (exits non-zero without it), turns TF32 off;
 2. build: compiles the three kernel sources (``abnet3_torch/csrc/*.cu``;
-   two of them share the warp core ``dtw_strip.cuh``) with nvcc for
+   all three share the warp core ``dtw_strip.cuh``) with nvcc for
    sm_90a, one nvcc per source, all at once, and prints the registers
    and spills ptxas reports for each kernel;
 3. kernel: the CUDA DTW path-mask kernel against its plain PyTorch version
-   on the card, at the flagship shapes, on tie-heavy integer inputs, a
-   non-square shape and a bucket past the shared-memory guard; masks must
-   be exactly equal and their path lengths equal to a host walk's;
+   on the card, at the flagship shapes, on tie-heavy integer inputs,
+   non-square shapes, several pairs a block, T2 not a multiple of 4,
+   column chunks with the moves in shared memory past 48 KB, moves in the
+   global scratch, and lengths 0 and T+1 (zero planes); masks must be
+   exactly equal and their path lengths equal to a host walk's;
 4. kernel_stats: the CUDA DTW path-stats kernel against its plain version
    on the card, in the (T1, B, T2) rows layout of the ABX tiles (at
    B=1024 and T=96, 64, 32, non-square, long) and the (B, T1, T2)
@@ -194,9 +196,14 @@ def angular_inputs(gen, B, T1, T2, dim=280):
 
 
 def walk_lengths(moves, n1, n2):
-    """Path lengths of the backtrace walks, on the host."""
+    """Path lengths of the backtrace walks, on the host; lengths outside
+    [1, T] select no cell."""
     out = []
+    T1, T2 = moves.shape[1:]
     for mv, a, c in zip(moves, n1.tolist(), n2.tolist()):
+        if not (1 <= a <= T1 and 1 <= c <= T2):
+            out.append(0)
+            continue
         i, j, steps = a - 1, c - 1, 1
         while (i, j) != (0, 0):
             m = int(mv[i, j])
@@ -213,18 +220,27 @@ def phase_kernel():
     for B in (32, 64):
         for T in (16, 32, 64, 96):
             cases.append(("angular", B, T, T))
-    # (4, 300, 500) keeps its moves in over 48 KB of shared memory (the
-    # opt-in launch attribute); (8, 512, 512) is past the guard (global
-    # move scratch)
+    # (200, 32, 32) puts two pairs in a block; (4, 300, 500) runs three
+    # column chunks with its moves in shared memory past 48 KB (the opt-in
+    # launch attribute); (8, 512, 512) and (2, 512, 512) keep them in the
+    # global scratch (one warp's plane is past 227 KB); T2 = 37 takes
+    # 4-byte row stores; "outside" gives some pairs lengths 0 and T+1
     cases += [("ties", 32, 96, 96), ("ties", 64, 64, 64),
-              ("angular", 32, 40, 72), ("angular", 4, 300, 500),
-              ("angular", 8, 512, 512)]
+              ("angular", 32, 40, 72), ("angular", 5, 40, 72),
+              ("angular", 200, 32, 32), ("ties", 200, 32, 32),
+              ("angular", 4, 300, 500), ("ties", 4, 300, 500),
+              ("angular", 8, 512, 512), ("angular", 2, 512, 512),
+              ("ties", 5, 50, 37), ("outside", 32, 96, 96),
+              ("outside", 6, 40, 37)]
     max_err = 0.0
     for kind, B, T1, T2 in cases:
         dist, n1, n2 = angular_inputs(gen, B, T1, T2)
         if kind == "ties":
             dist = torch.randint(0, 3, (B, T1, T2), generator=gen
                                  ).float().cuda()
+        if kind == "outside":
+            n1[3], n2[4], n1[5] = 0, T2 + 1, T1 + 1
+            n2[-1] = 0
         A = dtw_path_cuda(dist, n1, n2)
         P = dtw_path_plain(dist, n1, n2)
         torch.cuda.synchronize()
@@ -799,11 +815,14 @@ def stats_bound(n1, n2, B):
                                  else "operations")
 
 
-def bound(B, T1, T2):
-    """Least time (ms) for the mask: each input byte read once, each
-    output byte written once, vs one add and two minimums per cell."""
-    nbytes = B * T1 * T2 * 4 * 2 + B * 4 * 2
-    ops = 3 * B * T1 * T2
+def bound(n1, n2, B, T1, T2):
+    """Least time (ms) for the mask: the n1*n2 cells each pair's DP needs
+    (a float32 read each), the lengths, and the whole mask written once,
+    vs about 8 float32 operations (an add, two minimums, five
+    comparisons) per needed cell."""
+    cells = int((n1.long() * n2.long()).sum())
+    nbytes = cells * 4 + B * T1 * T2 * 4 + B * 4 * 2
+    ops = 8 * cells
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -811,7 +830,8 @@ def bound(B, T1, T2):
 
 
 def phase_timing(trainer, loader):
-    from abnet3_torch.ops.cuda_dtw import dtw_path_cuda, dtw_path_plain
+    from abnet3_torch.ops.cuda_dtw import (dtw_path_cuda, dtw_path_plain,
+                                           strip_geometry)
     from abnet3_torch.ops.kernel_bench import cold_copies
     gen = torch.Generator().manual_seed(1)
     rows = {}
@@ -821,7 +841,13 @@ def phase_timing(trainer, loader):
                            cold_copies(dist), "dtw_path_kernel")
         row["plain_ms"] = cuda_time_ms(
             lambda: dtw_path_plain(dist, n1, n2), reps=5, warmup=1)
-        row["bound_ms"], row["bound_by"] = bound(B, T, T)
+        row["bound_ms"], row["bound_by"] = bound(n1, n2, B, T, T)
+        # the chain of the longest pair (pair 0 is T x T): its forward
+        # steps, then one walk step a cell of its path
+        row["forward_steps"] = strip_geometry(
+            B, T, T, 1, move_plane=True).steps(T, T)
+        row["walk_steps"] = int(dtw_path_cuda(dist, n1, n2)[0].sum())
+        row["chain_steps"] = row["forward_steps"] + row["walk_steps"]
         rows[(B, T)] = row
         emit({"phase": "timing", "kernel": "dtw_path", "shape": [B, T, T],
               "library_ms": None, **row})

@@ -38,16 +38,34 @@ def _inputs(kind, shape, device, seed=6):
     return dist.to(device), n1.to(device), n2.to(device)
 
 
+# the flagship buckets, a non-square plane, three column chunks with the
+# moves in shared memory past 48 KB, moves in the global scratch (past
+# 227 KB), several pairs a block, T2 % 4 != 0 (4-byte row stores)
+PATH_SHAPES = [(32, 96, 96), (64, 64, 64), (7, 40, 72), (3, 300, 500),
+               (2, 512, 512), (200, 32, 32), (4, 300, 500), (5, 40, 72),
+               (5, 50, 37), (3, 70, 129)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["angular", "ties"])
-@pytest.mark.parametrize("shape", [(32, 96, 96), (64, 64, 64), (7, 40, 72),
-                                   (3, 300, 500), (2, 512, 512)])
+@pytest.mark.parametrize("shape", PATH_SHAPES)
 def test_dtw_path_kernel_matches_plain(cuda_device, kind, shape):
     dist, n1, n2 = _inputs(kind, shape, cuda_device)
     before = cuda_dtw.dtw_path_cuda.launches
     A = cuda_dtw.dtw_path_cuda(dist, n1, n2)
     assert cuda_dtw.dtw_path_cuda.launches == before + 1
     assert torch.equal(A, cuda_dtw.dtw_path_plain(dist, n1, n2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 20, 40), (6, 20, 37), (6, 300, 200)])
+def test_dtw_path_kernel_lengths_outside_the_plane(cuda_device, shape):
+    """Lengths 0 and T+1 give zero planes; the other pairs their paths."""
+    dist, n1, n2 = _inputs("angular", shape, cuda_device)
+    n1[2], n2[3], n1[4], n2[5] = 0, 0, shape[1] + 1, shape[2] + 1
+    A = cuda_dtw.dtw_path_cuda(dist, n1, n2)
+    assert torch.equal(A, cuda_dtw.dtw_path_plain(dist, n1, n2))
+    assert not A[2:].any() and A[0].sum() >= max(shape[1:])
 
 
 @pytest.mark.cuda
@@ -148,16 +166,19 @@ def test_dtw_path_stats_kernel_lengths_outside_the_plane(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     (1024, 96, 96), (32, 128, 128), (64, 96, 96), (1025, 50, 37),
-    (1, 64, 100), (4, 70, 129), (4, 1024, 1024), (2000, 9000, 200)])
+    (1, 64, 100), (4, 70, 129), (4, 1024, 1024), (2000, 9000, 200),
+    (200, 32, 32), (4, 300, 500), (2, 512, 512), (32, 2000, 96)])
 def test_strip_geometry_mirrors_the_launch_functions(cuda_device, shape):
     """The Python mirror against the C functions' own choice."""
     import ctypes
-    out = (ctypes.c_int * 8)()
-    for name, fn, words in (("dtw_moves", "dtw_moves_geometry", 1),
-                            ("dtw_path_stats", "dtw_path_stats_geometry",
-                             2)):
+    out = (ctypes.c_int * len(cuda_dtw.StripGeometry._fields))()
+    for name, fn, words, plane in (
+            ("dtw_moves", "dtw_moves_geometry", 1, False),
+            ("dtw_path_stats", "dtw_path_stats_geometry", 2, False),
+            ("dtw_path", "dtw_path_geometry", 1, True)):
         getattr(cuda_dtw._lib(name), fn)(*shape, out)
-        assert tuple(out) == tuple(cuda_dtw.strip_geometry(*shape, words))
+        assert tuple(out) == tuple(cuda_dtw.strip_geometry(*shape, words,
+                                                           plane))
 
 
 @pytest.mark.cuda
