@@ -20,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import resolve_device
 
 __all__ = ["EmbedderBuilder", "EmbedderSiamese"]
@@ -176,7 +177,8 @@ class EmbedderSiamese(EmbedderBuilder):
         forward = self._forward_fn()
         data = read_h5features(self.feature_path, "features")
         print("Done loading input feature file")
-        embeddings = self._embed_corpus(forward, data.features())
+        with stage_trace("embed"):
+            embeddings = self._embed_corpus(forward, data.features())
         if os.path.exists(self.output_path):
             os.remove(self.output_path)
         write_h5features(self.output_path, "features", data.items(),

@@ -34,7 +34,6 @@ checkpoint/resume, ``device_out``, ``host_out=False``,
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +45,7 @@ from abnet3_torch.ops.dtw import (anchor_angular_distance_rows,
                                   dtw_path_stats_rows,
                                   pairwise_angular_distance,
                                   pairwise_kl_distance, unit_frames)
+from abnet3_torch.utils import full_float32
 
 __all__ = ["make_pair_distance_fn", "distance_matrix", "abx_error",
            "read_item_file", "evaluate", "main", "full_float32"]
@@ -53,24 +53,7 @@ __all__ = ["make_pair_distance_fn", "distance_matrix", "abx_error",
 
 def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported to abnet3_torch yet "
-                              "(ROADMAP.md A9)")
-
-
-@contextlib.contextmanager
-def full_float32():
-    """Float32 matmuls and convolutions in full precision inside the
-    block, the caller's TF32 settings restored on exit: TF32 keeps about
-    three decimal digits, far coarser than the u16 tile codec's step of
-    7.6e-6."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+                              "(ROADMAP.md A4)")
 
 
 def _masked_mean_pool(f: torch.Tensor, n: torch.Tensor, T: int

@@ -30,8 +30,10 @@ import numpy as np
 import torch
 
 from abnet3_torch.dataloader import Batch, SplitBankBatch
+from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import resolve_device
-from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+from abnet3_torch.weights import (jax_param_slots, load_jax_numpy,
+                                  to_jax_numpy)
 
 __all__ = ["TrainerBuilder", "TrainerSiamese", "build_optimizer",
            "MetricsWriter"]
@@ -57,6 +59,23 @@ def build_optimizer(optimizer_type: str, params, lr: float,
             f"optimizer_type={optimizer_type!r} is not ported yet: it needs "
             "optax's semantics written out")
     raise ValueError(f"unknown optimizer_type {optimizer_type!r}")
+
+
+# optax's state of each optimizer build_optimizer makes, as a checkpoint
+# stores it (see _layout): named tuples as lists, `tree` params-shaped
+_OPTAX_LAYOUTS = {"sgd": "[[tree], []]",
+                  "adadelta": "[[], [tree, tree], []]",
+                  "adam": "[[array(), tree, tree], []]"}
+
+
+def _layout(node) -> str:
+    """A short description of a checkpoint subtree's structure: lists as
+    lists, a params-shaped tree as ``tree``, an array by its shape."""
+    if isinstance(node, list):
+        return "[" + ", ".join(_layout(v) for v in node) + "]"
+    if isinstance(node, dict):
+        return "tree"
+    return f"array{tuple(np.shape(node))}"
 
 
 class MetricsWriter:
@@ -163,17 +182,48 @@ class TrainerBuilder:
     # -- checkpoint / resume ----------------------------------------------
     # The full training state (params, batch-norm state, optimizer state,
     # early-stopping counters, loss history) round-trips through one file
-    # in the npz-in-pytree format of abnet3_torch.serialize.
+    # in the npz-in-pytree format of abnet3_torch.serialize. The optimizer
+    # state is written in optax's layout, so a .ckpt of either package
+    # resumes in the other.
 
     @property
     def _ckpt_path(self):
         return self.network.output_path + ".ckpt"
 
+    def _slot_tree(self, name):
+        """The optimizer's per-parameter state ``name`` as a tree shaped
+        like the JAX params (zeros where a parameter has none yet, as in
+        optax's initial state)."""
+        tree = {}
+        for layer, key, p in jax_param_slots(self.network):
+            v = self.optimizer.state.get(p, {}).get(name)
+            tree.setdefault(layer, {})[key] = (
+                np.zeros(tuple(p.shape), np.float32) if v is None
+                else v.detach().cpu().numpy().copy())
+        return tree
+
+    def _torch_steps(self) -> float:
+        steps = [float(s["step"]) for s in self.optimizer.state.values()
+                 if "step" in s]
+        return max(steps, default=0.0)
+
     def _opt_state_tree(self):
-        return {str(i): {k: np.asarray(v.detach().cpu()
-                                       if torch.is_tensor(v) else v)
-                         for k, v in s.items()}
-                for i, s in self.optimizer.state_dict()["state"].items()}
+        """optax's state of ``build_optimizer(optimizer_type)`` in the JAX
+        package, from torch's: sgd ``(TraceState(trace), EmptyState())``
+        from ``momentum_buffer``; adadelta ``(EmptyState(),
+        ScaleByAdaDeltaState(e_g, e_x), EmptyState())`` from
+        ``square_avg``, ``acc_delta``; adam ``(ScaleByAdamState(count, mu,
+        nu), EmptyState())`` from the shared ``step``, ``exp_avg``,
+        ``exp_avg_sq``. Named tuples are lists here, as on disk."""
+        kind = self.optimizer_type
+        if kind == "sgd":
+            return [[self._slot_tree("momentum_buffer")], []]
+        if kind == "adadelta":
+            return [[], [self._slot_tree("square_avg"),
+                         self._slot_tree("acc_delta")], []]
+        return [[np.asarray(int(self._torch_steps()), np.int32),
+                 self._slot_tree("exp_avg"), self._slot_tree("exp_avg_sq")],
+                []]
 
     def save_checkpoint(self, epoch: int):
         from abnet3_torch.serialize import save_pytree
@@ -186,18 +236,59 @@ class TrainerBuilder:
                 "patience_dev": self.patience_dev,
                 "best_epoch": self.best_epoch,
                 "train_losses": [float(x) for x in self.train_losses],
-                "dev_losses": [float(x) for x in self.dev_losses]}
+                "dev_losses": [float(x) for x in self.dev_losses],
+                # torch's adadelta step counter, which optax does not keep
+                # (the JAX package ignores this key)
+                "torch_steps": self._torch_steps()}
         save_pytree(self._ckpt_path, tree, meta)
+
+    def _load_opt_state(self, saved, meta):
+        """Fill the optimizer's state from a checkpoint's ``opt_state``:
+        optax's layout (either package), or the port's earlier layout,
+        torch's ``state_dict`` by parameter index."""
+        if isinstance(saved, dict):
+            sd = self.optimizer.state_dict()
+            sd["state"] = {int(i): {k: torch.as_tensor(v)
+                                    for k, v in s.items()}
+                           for i, s in saved.items()}
+            self.optimizer.load_state_dict(sd)
+            return
+        want = _OPTAX_LAYOUTS[self.optimizer_type]
+        if _layout(saved) != want:
+            raise ValueError(
+                f"the checkpoint's optimizer state has the layout "
+                f"{_layout(saved)}; optax's {self.optimizer_type} state, "
+                f"which this trainer reads and writes, has {want}"
+                " (or torch's state_dict by parameter index)")
+        kind = self.optimizer_type
+        if kind == "sgd":
+            slots, steps = {"momentum_buffer": saved[0][0]}, None
+        elif kind == "adadelta":
+            slots = {"square_avg": saved[1][0], "acc_delta": saved[1][1]}
+            steps = float(meta.get("torch_steps", 0.0))
+        else:
+            slots = {"exp_avg": saved[0][1], "exp_avg_sq": saved[0][2]}
+            steps = float(saved[0][0])
+        self.optimizer.state.clear()
+        for layer, key, p in jax_param_slots(self.network):
+            st = {}
+            if steps is not None:
+                st["step"] = torch.tensor(steps, dtype=torch.float32)
+            for name, tree in slots.items():
+                v = np.asarray(tree[layer][key], np.float32)
+                if v.shape != tuple(p.shape):
+                    raise ValueError(
+                        f"optimizer state {name} of {layer}/{key}: shape "
+                        f"{v.shape}, the network's {tuple(p.shape)}")
+                st[name] = torch.from_numpy(v.copy()).to(p.device)
+            self.optimizer.state[p] = st
 
     def load_checkpoint(self) -> int:
         """Restore the full training state; returns the next epoch."""
         from abnet3_torch.serialize import load_pytree
         tree, meta = load_pytree(self._ckpt_path)
         load_jax_numpy(self.network, tree["params"], tree.get("state", {}))
-        sd = self.optimizer.state_dict()
-        sd["state"] = {int(i): {k: torch.as_tensor(v) for k, v in s.items()}
-                       for i, s in tree["opt_state"].items()}
-        self.optimizer.load_state_dict(sd)
+        self._load_opt_state(tree["opt_state"], meta)
         self.best_dev = (meta["best_dev"]
                          if meta.get("best_dev_is_mean") else None)
         self.patience_dev = meta["patience_dev"]
@@ -239,7 +330,8 @@ class TrainerBuilder:
             self.statistics_training[key] = 0
 
         for epoch in range(start_epoch, self.num_epochs):
-            dev_loss = self.optimize_model(do_training=True)
+            with stage_trace(f"train-epoch-{epoch}"):
+                dev_loss = self.optimize_model(do_training=True)
             train_writer.add_scalar("loss", self.train_losses[-1],
                                     epoch + 1)
             dev_writer.add_scalar("loss", self.dev_losses[-1], epoch + 1)

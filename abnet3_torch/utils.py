@@ -1,21 +1,27 @@
-"""Host-side utilities: pair-file parsing, feature access, device choice.
+"""Host-side utilities: text parsers, sampling distributions, feature
+access, device choice.
 
-A copy of the parts of ``abnet3_tpu/utils.py`` that the training and
-evaluation slices use, with the same file formats and semantics, plus
-:func:`resolve_device`, which every entry point of the port uses to pick
-its device.
+A copy of the parts of ``abnet3_tpu/utils.py`` that the port uses, with
+the same file formats and semantics (the sampling helpers draw from the
+global ``np.random`` exactly as there), plus :func:`resolve_device`, which
+every entry point of the port uses to pick its device, and
+:func:`full_float32`.
 """
 
 from __future__ import annotations
 
+import contextlib
+from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["read_spkid_file", "read_dataset", "group_pairs",
-           "Features_Accessor", "read_feats", "resolve_device",
-           "pow2_bucket"]
+__all__ = ["read_spkid_file", "read_spk_list", "read_dataset",
+           "group_pairs", "read_vad_file", "print_token",
+           "normalize_distribution", "cumulative_distribution",
+           "sample_searchidx", "Features_Accessor", "read_feats",
+           "resolve_device", "full_float32", "pow2_bucket"]
 
 
 def resolve_device(device=None, cuda: bool = True) -> torch.device:
@@ -37,6 +43,23 @@ def resolve_device(device=None, cuda: bool = True) -> torch.device:
     return device
 
 
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matmuls and convolutions in full precision inside the
+    block, the caller's TF32 settings restored on exit: TF32 keeps about
+    three decimal digits, far coarser than the u16 tile codec's step of
+    7.6e-6 and than the front end's parity with the JAX package."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
 def read_spkid_file(spkid_file: str) -> Dict[str, str]:
     """Parse a ``fid spkid`` mapping file (reference utils.py:23-31)."""
     spk: Dict[str, str] = {}
@@ -50,6 +73,12 @@ def read_spkid_file(spkid_file: str) -> Dict[str, str]:
                 raise ValueError(f"duplicate file id '{fid}' in {spkid_file}")
             spk[fid] = spkid
     return spk
+
+
+def read_spk_list(spk_file: str) -> List[str]:
+    """One speaker id per line (reference utils.py:34-37)."""
+    with open(spk_file, "r") as fh:
+        return [line.strip() for line in fh]
 
 
 def read_dataset(dataset_file: str) -> List[Tuple]:
@@ -81,6 +110,45 @@ def group_pairs(pairs: Sequence[Tuple]) -> Dict[str, List[Tuple]]:
             raise ValueError(f"unsupported pair type {pair_type}")
         grouped[pair_type].append((f1, s1, e1, f2, s2, e2))
     return grouped
+
+
+def read_vad_file(path: str) -> Dict[str, List[List[float]]]:
+    """CSV with header: ``file,start,end`` (reference utils.py:238-254)."""
+    dict_vad: Dict[str, List[List[float]]] = defaultdict(list)
+    with open(path, "r") as f:
+        lines = [line.strip().split(",") for line in f]
+    for name, s, e in lines[1:]:  # skip header
+        dict_vad[name].append([float(s), float(e)])
+    return dict_vad
+
+
+def print_token(tok) -> str:
+    """Format one token as ``fid start end`` with 2 decimals
+    (reference utils.py:101-105)."""
+    return "{0} {1:.2f} {2:.2f}".format(tok[0], tok[1], tok[2])
+
+
+# sampling-distribution helpers (reference utils.py:63-98)
+
+def normalize_distribution(p: Dict) -> Dict:
+    total = float(sum(p.values()))
+    if total > 0:
+        for key in p:
+            p[key] = p[key] / total
+    return p
+
+
+def cumulative_distribution(distribution: Dict) -> np.ndarray:
+    values = np.asarray(list(distribution.values()), dtype=np.float64)
+    cdf = np.cumsum(values)
+    cdf /= cdf[-1]
+    return cdf
+
+
+def sample_searchidx(cdf: np.ndarray, num_samples: int) -> np.ndarray:
+    """Inverse-CDF multinomial sampling (reference utils.py:92-98)."""
+    uniform_samples = np.random.random_sample(int(num_samples))
+    return cdf.searchsorted(uniform_samples, side="right")
 
 
 class Features_Accessor:

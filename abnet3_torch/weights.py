@@ -15,13 +15,22 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["load_jax_numpy", "to_jax_numpy"]
+__all__ = ["load_jax_numpy", "to_jax_numpy", "jax_param_slots"]
 
 _PARAM_KEYS = ("w", "b", "bn_scale", "bn_bias")
 
 
 def _layers(network):
     return network.tower.layers
+
+
+def jax_param_slots(network):
+    """Each parameter of ``network`` with its place in the JAX package's
+    params tree: (``'layer_i'``, key, parameter)."""
+    for i, layer in enumerate(_layers(network)):
+        for k in _PARAM_KEYS:
+            if hasattr(layer, k):
+                yield f"layer_{i}", k, getattr(layer, k)
 
 
 @torch.no_grad()

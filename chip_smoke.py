@@ -36,41 +36,57 @@ Phases, each printing JSON lines:
    that mask;
 6. kernel_costs: the CUDA DTW cost kernel against its plain version on
    the same shapes: max difference 0.0;
-7. main_path: the flagship recipe (``examples/experiment.yaml``: token
+7. front_end: a synthetic corpus in the flagship format: 40 int16 wavs
+   of 30 s at 16 kHz, 10 speakers saying ~2,000 words (100 classes, each
+   a fixed tone sequence at the speaker's pitch, 20-96 frames, in noise);
+   ``FeaturesGenerator.spectral_stream`` (40-filter log-mel) on the card,
+   then per-channel CMVN and 7-frame stacking on the host (280 dims).
+   The card's log-mel must agree with the same function on CPU tensors
+   within atol 1e-3;
+8. sampler: the corpus's ``.classes`` and spkid files through
+   ``SamplerClusterSiamese`` with the flagship's arguments and 8,000
+   pairs (70/30 train/dev), read back with ``read_dataset``;
+9. main_path: the flagship recipe (``examples/experiment.yaml``: token
    bank + split batches, SiameseNetwork 280->500->500->500->100 sigmoid,
    coscos2, adadelta lr 0.1, batch 64, steps_per_call 8) trained for 2
-   epochs through ``TrainerSiamese.train()`` on a synthetic corpus made
-   from a seed; the losses must be finite, the kernel's launch count must
-   equal the number of steps, the ``.pth`` must reload into an equal
-   network, and one step on the card must agree with the CPU path;
-8. gather_path: the same corpus and network shape through the device
-   backend (``OriginalDataLoader(align_backend="device")``: same pairs
-   aligned by the move kernel and the backtrace walk, frames gathered)
-   and ``TrainerSiamese.train()`` for 2 epochs: finite losses, the move
-   kernel launched once per same-pair group of every pass, and one train
-   step on the card equal to the CPU path's within rtol 1e-4. Then the
-   bank loader's batches through the split step with
-   ``matrix_loss=False`` for a few steps: one launch per step, and the
-   gather loss equal to the matrix-mode loss within rtol 1e-4;
-9. eval_path: the trained network embeds the corpus through
-   ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
-   inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from the
-   embeddings goes through ``distance_matrix`` (dtw_cos, tiles of 1,024:
-   10 tiles, one stats-kernel launch per row, 10,240 in all) and
-   ``abx_error`` (across); the matrix must be symmetric with a zero
-   diagonal, and on 128 tokens the card and the CPU (plain version) must
-   agree within 2 u16 steps, their ABX errors within 1e-3. The card's
-   eval path runs in memory: the machine with the card has no h5py, so
-   ``embed()``/``evaluate()``'s file layer is held against the JAX
-   package by the CPU tests;
-10. timing: for each of the four kernels ``device_ms`` (the kernel's own
+   epochs through ``TrainerSiamese.train()`` on those features and
+   pairs, with random weights from a seed; the losses must be finite,
+   the kernel's launch count must equal the number of steps, the
+   ``.pth`` must reload into an equal network, and one step on the card
+   must agree with the CPU path;
+10. gather_path: the same corpus and network shape through the device
+    backend (``OriginalDataLoader(align_backend="device")``: same pairs
+    aligned by the move kernel and the backtrace walk, frames gathered)
+    and ``TrainerSiamese.train()`` for 2 epochs: finite losses, the move
+    kernel launched once per same-pair group of every pass, and one
+    train step on the card equal to the CPU path's within rtol 1e-4.
+    Then the bank loader's batches through the split step with
+    ``matrix_loss=False`` for a few steps: one launch per step, and the
+    gather loss equal to the matrix-mode loss within rtol 1e-4. Both
+    training phases print whether the dev loss after epoch 2 is below
+    epoch 0's;
+11. eval_path: the trained network embeds the corpus through
+    ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
+    inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from
+    the embeddings goes through ``distance_matrix`` (dtw_cos, tiles of
+    1,024: 10 tiles, one stats-kernel launch per row, 10,240 in all) and
+    ``abx_error`` (across); the matrix must be symmetric with a zero
+    diagonal, and on 128 tokens the card and the CPU (plain version) must
+    agree within 2 u16 steps, their ABX errors within 1e-3. The card's
+    stages run in memory: the machine with the card has no h5py, so
+    ``generate()``/``embed()``/``evaluate()``'s file layer is held
+    against the JAX package by the CPU tests;
+12. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+    over the same wavs, where h5py and pyyaml are installed; otherwise a
+    line naming the one missing;
+13. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-11. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
+14. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
     steps (the device loader's batch building included) and over one ABX
     tile of 1,024 rows: device time by group, launches and the busy
     share.
@@ -409,30 +425,205 @@ def phase_kernel_costs():
     return max_err
 
 
-def synthetic_corpus(seed, n_files=40, frames=3000, dim=280, n_tokens=2000,
-                     n_pairs=8000, dev_share=0.2):
-    """Random stacked-fbank-sized features and word pairs (half same,
-    half different) over tokens of 20-96 frames."""
-    from abnet3_torch.utils import Features_Accessor
+FS = 16000
+
+
+def synthetic_audio_corpus(seed, n_speakers=10, files_per_speaker=4,
+                           seconds=30, n_classes=100):
+    """Words in noise, made from a seed: each of ``n_classes`` words is a
+    fixed sequence of three two-tone segments with a typical length of
+    20-96 frames; each speaker says them at a pitch scale of their own
+    (tests/test_wav_to_abx.py's idiom). Words are laid end to end with
+    gaps of 0-3 frames through ``files_per_speaker`` files of ``seconds``
+    per speaker, at 16 kHz in int16, each token 20-96 frames (about 2,000
+    tokens at the defaults). Returns ({name: int16 wav}, [(class, name,
+    first frame, frames)], {name: speaker}); file ``f<i>`` belongs to
+    speaker i // files_per_speaker."""
+    from abnet3_torch.ops.dsp import num_frames
     rng = np.random.RandomState(seed)
-    names = [f"f{i}" for i in range(n_files)]
-    feats = {f: rng.randn(frames, dim).astype(np.float32) for f in names}
-    times = {f: np.arange(frames) * 0.01 + 0.0025 for f in names}
-    tokens = []
-    for _ in range(n_tokens):
-        f = names[rng.randint(n_files)]
-        n = rng.randint(20, 97)
-        s = rng.randint(0, frames - n)
-        # [on, off] holds exactly the frames s .. s+n-1
-        tokens.append((f, s * 0.01, (s + n - 1) * 0.01 + 0.005))
-    pairs = []
-    for k in range(n_pairs):
-        a, b = rng.randint(n_tokens, size=2)
-        pairs.append(tokens[a] + tokens[b]
-                     + ("same" if k % 2 == 0 else "diff",))
-    n_dev = int(n_pairs * dev_share)
-    return (Features_Accessor(times, feats),
-            {"train": pairs[n_dev:], "dev": pairs[:n_dev]})
+    hop = FS // 100
+    n = seconds * FS
+    nf = num_frames(n, FS)
+    words = [(rng.uniform(250, 900, 3), rng.uniform(1000, 3000, 3),
+              rng.randint(20, 97)) for _ in range(n_classes)]
+    pitch = rng.uniform(0.85, 1.2, n_speakers)
+    wavs, tokens, speaker_of = {}, [], {}
+    for i in range(n_speakers * files_per_speaker):
+        name, spk = f"f{i}", i // files_per_speaker
+        x = 0.02 * rng.randn(n)
+        frame = rng.randint(0, 4)
+        while True:
+            c = rng.randint(n_classes)
+            f1, f2, typical = words[c]
+            length = int(np.clip(round(typical * rng.uniform(0.9, 1.1)),
+                                 20, 96))
+            if frame + length > nf:
+                break
+            a, b = frame * hop, (frame + length) * hop
+            k = np.arange(b - a)
+            seg = np.minimum(3 * k // (b - a), 2)
+            t = k / FS * pitch[spk]
+            x[a:b] += np.hanning(b - a) * (
+                np.sin(2 * np.pi * f1[seg] * t)
+                + 0.6 * np.sin(2 * np.pi * f2[seg] * t))
+            tokens.append((c, name, frame, length))
+            frame += length + rng.randint(0, 4)
+        wavs[name] = (x * 6000).astype(np.int16)
+        speaker_of[name] = f"spk{spk}"
+    return wavs, tokens, speaker_of
+
+
+def phase_front_end(seed=0, device=None, **corpus_kw):
+    """The flagship front end (``examples/experiment.yaml``: 40-filter
+    fbanks, per-channel CMVN, 7-frame stacking, 280 dims) over the
+    synthetic audio corpus: its wavs written under ``OUT/wavs``, the
+    port's batched spectral pass (``FeaturesGenerator.spectral_stream``)
+    on the card, then CMVN and stacking on the host in memory. The card's
+    log-mel is held against the same function on CPU tensors (atol
+    1e-3). Returns (Features_Accessor of the stacked features, tokens,
+    speakers, wav paths)."""
+    from scipy.io import wavfile
+
+    from abnet3_torch.features import (FeaturesGenerator, cmvn_apply,
+                                       cmvn_statistics)
+    from abnet3_torch.ops import dsp
+    from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_moves_cuda,
+                                           dtw_path_cuda,
+                                           dtw_path_stats_cuda)
+    from abnet3_torch.utils import Features_Accessor, resolve_device
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    wavs, tokens, speaker_of = synthetic_audio_corpus(seed, **corpus_kw)
+    wavdir = os.path.join(OUT, "wavs")
+    os.makedirs(wavdir)
+    paths = []
+    for name, x in wavs.items():
+        paths.append(os.path.join(wavdir, name + ".wav"))
+        wavfile.write(paths[-1], FS, x)
+    synth_s = time.perf_counter() - t0
+
+    fg = FeaturesGenerator(files=paths, method="fbanks", n_filters=40,
+                           normalization=True, norm_per_file=False,
+                           norm_per_channel=True, stack=True, nframes=7,
+                           device=dev)
+    reset_launches()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    spectra = list(fg.spectral_stream(paths, "fbanks"))
+    sync()
+    spectral_s = time.perf_counter() - t0
+    launches = [f.launches for f in (dtw_path_cuda, dtw_path_stats_cuda,
+                                     dtw_moves_cuda, dtw_costs_cuda)]
+    t0 = time.perf_counter()
+    mean, std = cmvn_statistics(spectra, per_channel=True)
+    stacked = {item: dsp.stack_frames_np(cmvn_apply(f, mean, std), 7)
+               for item, _, f in spectra}
+    host_s = time.perf_counter() - t0
+    times = {item: tm for item, tm, _ in spectra}
+    frames = sum(len(f) for _, _, f in spectra)
+    if [item for item, _, _ in spectra] != list(wavs) or not all(
+            f.shape == (len(times[it]), 280) and np.isfinite(f).all()
+            for it, f in stacked.items()):
+        raise AssertionError("front end: items out of order, or features "
+                             "of the wrong shape or not finite")
+
+    # the card's log-mel against the same function on CPU tensors, 8
+    # wavs a batch at the pass's padded length
+    t0 = time.perf_counter()
+    max_err = 0.0
+    for a in range(0, len(spectra), 8):
+        chunk = spectra[a:a + 8]
+        x = [wavs[item] for item, _, _ in chunk]
+        pad = fg._bucket_seconds(max(map(len, x)), FS) * FS
+        batch = np.zeros((len(x), pad), np.int16)
+        for j, w in enumerate(x):
+            batch[j, :len(w)] = w
+        cpu = dsp.spectral_frames_batch(torch.from_numpy(batch), FS,
+                                        nfilt=40).numpy()
+        for j, (_, _, f) in enumerate(chunk):
+            max_err = max(max_err, float(np.abs(cpu[j, :len(f)] - f).max()))
+    cpu_s = time.perf_counter() - t0
+    if max_err > 1e-3:
+        raise AssertionError(f"front end: card log-mel differs from the "
+                             f"CPU's by {max_err}")
+    batch_ms = None
+    if dev.type == "cuda":
+        pad = fg._bucket_seconds(len(wavs["f0"]), FS) * FS
+        xb = torch.from_numpy(np.stack([np.resize(wavs["f0"], pad)] * 32)
+                              ).to(dev)
+        batch_ms = cuda_time_ms(
+            lambda: dsp.spectral_frames_batch(xb, FS, nfilt=40), reps=5,
+            warmup=1)
+    seconds = sum(len(w) for w in wavs.values()) / FS
+    emit({"phase": "front_end", "wavs": len(wavs), "wav_seconds": seconds,
+          "frames": frames, "dims": 280, "tokens": len(tokens),
+          "dispatches": fg.spectral_dispatches, "synth_write_s": synth_s,
+          "spectral_s": spectral_s, "cmvn_stack_s": host_s,
+          "frames_per_s": frames / (spectral_s + host_s),
+          "audio_seconds_per_s": seconds / spectral_s,
+          "dispatch_card_ms": batch_ms, "logmel_max_abs_err": max_err,
+          "cpu_check_s": cpu_s, "kernel_launches": launches})
+    return (Features_Accessor(times, stacked), tokens, speaker_of,
+            paths)
+
+
+def write_inventory(tokens, speaker_of):
+    """The corpus's ``.classes`` (a token spans frames [first, first +
+    frames), so its times are first/100 and (first + frames)/100) and
+    spkid files under ``OUT``."""
+    from collections import defaultdict
+    by_class = defaultdict(list)
+    for c, name, first, n in tokens:
+        by_class[c].append(f"{name} {first * 0.01:.2f} "
+                           f"{(first + n) * 0.01:.2f}")
+    lines = []
+    for c in sorted(by_class):
+        lines += [f"{c} word{c}"] + by_class[c] + [""]
+    classes = os.path.join(OUT, "words.classes")
+    with open(classes, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    spk = os.path.join(OUT, "spk.txt")
+    with open(spk, "w") as fh:
+        fh.writelines(f"{name} {s}\n" for name, s in speaker_of.items())
+    return classes, spk
+
+
+def phase_sampler(tokens, speaker_of, n_pairs=8000):
+    """``SamplerClusterSiamese`` with the flagship's arguments (pairs cut
+    from 500,000 to ``n_pairs``) over the corpus's inventory; the pairs
+    read back with ``read_dataset``. Returns ({'train', 'dev'}: pairs,
+    classes path, spkid path)."""
+    import random
+
+    from abnet3_torch.sampler import SamplerClusterSiamese
+    from abnet3_torch.utils import read_dataset
+    classes, spk = write_inventory(tokens, speaker_of)
+    out = os.path.join(OUT, "pairs")
+    # the sampler's split draws from the global generators
+    np.random.seed(0)
+    random.seed(0)
+    t0 = time.perf_counter()
+    SamplerClusterSiamese(
+        std_file=classes, spkid_file=spk, directory_output=out,
+        max_size_cluster=20, ratio_same_diff_spk=0.5,
+        ratio_same_diff_type=0.5, type_sampling_mode="log",
+        spk_sampling_mode="log", num_total_sampled_pairs=n_pairs,
+        seed=0).sample()
+    sample_s = time.perf_counter() - t0
+    pairs = {split: read_dataset(os.path.join(out, f"{split}_pairs",
+                                              "dataset"))
+             for split in ("train", "dev")}
+    if not (pairs["train"] and pairs["dev"]):
+        raise AssertionError("the sampler wrote an empty split")
+    shares = {split: sum(p[6] == "same" for p in v) / len(v)
+              for split, v in pairs.items()}
+    emit({"phase": "sampler", "tokens": len(tokens),
+          "classes": len({t[0] for t in tokens}),
+          "speakers": len(set(speaker_of.values())),
+          "train_pairs": len(pairs["train"]), "dev_pairs": len(pairs["dev"]),
+          "same_share": shares, "sample_s": sample_s})
+    return pairs, classes, spk
 
 
 def flagship_network(output_path=None, device=None):
@@ -443,7 +634,9 @@ def flagship_network(output_path=None, device=None):
                           output_path=output_path, device=device)
 
 
-def phase_main_path():
+def phase_main_path(features, pairs):
+    """The flagship recipe's training on the front end's features and the
+    sampler's pairs."""
     from abnet3_torch.dataloader import OriginalDataLoader
     from abnet3_torch.loss import coscos2
     from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_path_cuda,
@@ -452,10 +645,7 @@ def phase_main_path():
     from abnet3_torch.trainer import TrainerSiamese
     from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
 
-    shutil.rmtree(OUT, ignore_errors=True)
-    os.makedirs(OUT)
     t0 = time.perf_counter()
-    features, pairs = synthetic_corpus(seed=0)
     loader = OriginalDataLoader(None, None, batch_size=64,
                                 num_max_minibatches=20, seed=0,
                                 align_backend="bank", steps_per_call=8)
@@ -533,6 +723,7 @@ def phase_main_path():
           "stats_launches": stats_launches, "costs_launches": costs_launches,
           "train_losses": trainer.train_losses,
           "dev_losses": trainer.dev_losses,
+          "dev_loss_fell": trainer.dev_losses[2] < trainer.dev_losses[0],
           "setup_s": setup_s, "train_s": train_s,
           "eval_step_card": v_gpu, "eval_step_cpu": v_cpu})
     return trainer, loader, launches, costs_launches
@@ -693,7 +884,9 @@ def phase_gather_path(main_trainer, main_loader):
           "moves_launches": launches, "path_launches": path_launches,
           "costs_launches": costs_launches,
           "train_losses": trainer.train_losses,
-          "dev_losses": trainer.dev_losses, "train_s": train_s,
+          "dev_losses": trainer.dev_losses,
+          "dev_loss_fell": trainer.dev_losses[2] < trainer.dev_losses[0],
+          "train_s": train_s,
           "statistics": dict(loader.statistics_training),
           "step_card": v_card, "step_cpu": v_cpu,
           "card_cpu_batches_equal": paths_equal,
@@ -801,6 +994,72 @@ def phase_eval_path(network, features, batch_size=5000, n_classes=512,
           "check_tokens": 128, "card_vs_cpu_max_diff": diff,
           "card_vs_cpu_error": [err_card, err_cpu], "cpu_tiles_s": cpu_s})
     return bank, launches, costs_launches
+
+
+def phase_gridsearch(wavdir, classes, spk, device=None):
+    """``abnet3_torch.gridsearch.GridSearch`` on a small flagship YAML over
+    the same wavs (features on the card, 2,000 pairs, one epoch, embed,
+    ABX), where h5py and pyyaml are installed; otherwise a line saying
+    which of them is missing. ``device="cpu"`` puts every stage on the
+    CPU (a rehearsal)."""
+    import importlib.util
+    missing = [name for name, module in (("h5py", "h5py"),
+                                         ("pyyaml", "yaml"))
+               if importlib.util.find_spec(module) is None]
+    if missing:
+        emit({"phase": "gridsearch",
+              "skipped": "/".join(missing) + " not installed"})
+        return
+    import yaml
+
+    from abnet3_torch.gridsearch import GridSearch
+    from abnet3_torch.ops.cuda_dtw import dtw_path_cuda, dtw_path_stats_cuda
+    exp = os.path.join(OUT, "gridsearch")
+    on = {} if device is None else {"device": device}
+    cuda = {} if device is None else {"cuda": False}
+    stage = {
+        "features": ("FeaturesGenerator", dict(
+            run="once", files=wavdir, method="fbanks", n_filters=40,
+            normalization=True, norm_per_file=False, norm_per_channel=True,
+            stack=True, nframes=7, **on)),
+        "sampler": ("SamplerClusterSiamese", dict(
+            run="once", std_file=classes, spkid_file=spk,
+            max_size_cluster=20, ratio_same_diff_spk=0.5,
+            ratio_same_diff_type=0.5, type_sampling_mode="log",
+            spk_sampling_mode="log", num_total_sampled_pairs=2000, seed=0)),
+        "dataloader": ("OriginalDataLoader", dict(
+            batch_size=64, num_max_minibatches=5, align_backend="bank",
+            steps_per_call=8, seed=0, **on)),
+        "model": ("SiameseNetwork", dict(
+            input_dim=280, num_hidden_layers=2, hidden_dim=500,
+            output_dim=100, p_dropout=0.0, activation_layer="sigmoid",
+            type_init="xavier_uni", **on)),
+        "loss": ("coscos2", {"avg": True}),
+        "trainer": ("TrainerSiamese", dict(
+            optimizer_type="adadelta", lr=0.1, num_epochs=1, patience=30,
+            seed=0, **cuda)),
+        "embedder": ("EmbedderSiamese", dict(batch_size=5000, **cuda))}
+    params = {k: {"class": c, "arguments": a} for k, (c, a) in stage.items()}
+    params["pathname_experience"] = exp
+    params["abx"] = {"run": "always", "arguments": dict(
+        task="across", distance="dtw_cos", **on)}
+    path = os.path.join(OUT, "gridsearch.yaml")
+    with open(path, "w") as fh:
+        yaml.safe_dump({"default_params": params}, fh)
+    reset_launches()
+    t0 = time.perf_counter()
+    GridSearch(input_file=path).run()
+    seconds = time.perf_counter() - t0
+    launches = {"dtw_path": dtw_path_cuda.launches,
+                "dtw_path_stats": dtw_path_stats_cuda.launches}
+    with open(os.path.join(exp, "abx.json")) as fh:
+        abx = json.load(fh)
+    if not (math.isfinite(abx["error"]) and abx["n_triplets"] > 0):
+        raise AssertionError(f"gridsearch ABX {abx}")
+    if device is None and not all(launches.values()):
+        raise AssertionError(f"gridsearch kernel launches {launches}")
+    emit({"phase": "gridsearch", "seconds": seconds, "launches": launches,
+          "abx_error": abx["error"], "n_triplets": abx["n_triplets"]})
 
 
 def stats_bound(n1, n2, B):
@@ -1092,7 +1351,11 @@ def main():
     stats_err = phase_kernel_stats()
     moves_err = phase_kernel_moves()
     costs_err = phase_kernel_costs()
-    trainer, loader, launches, costs_main = phase_main_path()
+    shutil.rmtree(OUT, ignore_errors=True)
+    os.makedirs(OUT)
+    features, tokens, speaker_of, wav_paths = phase_front_end()
+    pairs, classes, spk = phase_sampler(tokens, speaker_of)
+    trainer, loader, launches, costs_main = phase_main_path(features, pairs)
     g_trainer, g_loader, moves_launches, costs_gather = phase_gather_path(
         trainer, loader)
     bank, stats_launches, costs_eval = phase_eval_path(trainer.network,
@@ -1102,6 +1365,7 @@ def main():
     if costs_launches != 0:
         raise AssertionError(f"the cost kernel ran {costs_launches} times "
                              "on the paths, which do not use it")
+    phase_gridsearch(os.path.dirname(wav_paths[0]), classes, spk)
     rows, run_step = phase_timing(trainer, loader)
     fwd_rows, _ = phase_timing_gather(g_trainer, g_loader)
     stats_row = phase_timing_stats(bank)

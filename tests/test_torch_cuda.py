@@ -261,3 +261,21 @@ def test_align_dispatcher_launches_move_kernel_on_card(cuda_device):
     cpu = dtw_align_from_dist(dist.cpu(), n1.cpu(), n2.cpu())
     for a, b in zip(card, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["fbanks", "mfcc"])
+@pytest.mark.parametrize("deltas", [False, True])
+def test_front_end_on_the_card_matches_the_cpu(cuda_device, method, deltas):
+    """The front end (cuFFT, full-float32 matmuls) on the card against the
+    same function on CPU tensors: within atol 1e-3 (TF32 would be far
+    outside it)."""
+    from abnet3_torch.ops.dsp import spectral_frames_batch
+    g = torch.Generator().manual_seed(9)
+    wavs = (torch.randn(4, 32000, generator=g) * 3000).to(torch.int16)
+    wavs[1, 8000:16000] = 0
+    kw = dict(method=method, nfilt=40, deltas=deltas, deltasdeltas=deltas)
+    card = spectral_frames_batch(wavs.to(cuda_device), 16000, **kw)
+    cpu = spectral_frames_batch(wavs, 16000, **kw)
+    assert card.device.type == "cuda" and card.shape == cpu.shape
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-3

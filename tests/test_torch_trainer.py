@@ -4,6 +4,7 @@ TrainerSiamese against the JAX package's, from the same corpus files and
 the same initial weights."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -20,7 +21,8 @@ from abnet3_torch.dataloader import OriginalDataLoader as TLoader
 from abnet3_torch.loss import coscos2 as Tcoscos2
 from abnet3_torch.models.siamese import SiameseNetwork as TNet
 from abnet3_torch.trainer import TrainerSiamese as TTrainer
-from torch_parity import assert_trees_close, carried_networks
+from abnet3_torch.weights import to_jax_numpy
+from torch_parity import assert_trees_close, carried_networks, to_numpy
 
 
 @pytest.fixture
@@ -229,3 +231,105 @@ def test_bank_gather_two_epochs_match_jax(corpus, tmp_path):
     np.testing.assert_allclose(tt.dev_losses, jt.dev_losses, rtol=1e-4)
     assert_trees_close((jt.network.params, jt.network.state), tt.network,
                        rtol=0, atol=1e-4)
+
+
+# -- .ckpt across the packages -------------------------------------------
+
+
+def _advance(loader, passes):
+    """Draw ``passes`` (train, dev) pass pairs from a fresh loader, as the
+    run that wrote a checkpoint did, so that the resumed run gets the
+    batches of a run that never stopped (the loader's RNG is not part of
+    the checkpoint in either package)."""
+    for _ in range(passes):
+        for train_mode in (True, False):
+            for _ in loader.batch_iterator(train_mode=train_mode):
+                pass
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("optimizer_type,lr", [("adadelta", 0.1),
+                                               ("adam", 0.01), ("sgd", 0.5)])
+def test_checkpoint_resumes_across_packages(corpus, tmp_path, writer,
+                                            optimizer_type, lr):
+    """A .ckpt written after epoch 0 by one package resumes in the other:
+    the optimizer state read back equals the writer's exactly, and the
+    resumed epoch's losses match those of a port run that never stopped
+    within rtol 1e-4. So do the final weights for sgd and adadelta (atol
+    1e-4, as the 2-epoch parity above); adam scales the rounding noise of
+    near-zero gradients up to whole steps (a batch-normed layer's biases),
+    and the two packages' uninterrupted runs already differ there."""
+    def pair(sub):
+        (tmp_path / sub).mkdir()
+        return _trainers(corpus, tmp_path / sub, 1, optimizer_type, lr)
+
+    def opt_leaves(t):  # optax's state (JAX) or the port's copy of it
+        tree = (t._opt_state if hasattr(t, "_opt_state")
+                else t._opt_state_tree())
+        return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+
+    jt, tt = pair("first")
+    first = jt if writer == "jax" else tt
+    first.num_epochs = 1
+    first.train()
+    _, ref = pair("ref")
+    ref.train()
+    jt, tt = pair("resumed")
+    resumed = tt if writer == "jax" else jt
+    shutil.copy(first.network.output_path + ".ckpt",
+                resumed.network.output_path + ".ckpt")
+    resumed.load_checkpoint()
+    a, b = opt_leaves(first), opt_leaves(resumed)
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(y, x)
+    _advance(resumed.dataloader, 2)
+    resumed.train(resume=True)
+
+    assert len(resumed.train_losses) == len(ref.train_losses) == 3
+    np.testing.assert_allclose(resumed.train_losses[:2],
+                               first.train_losses, rtol=0)
+    np.testing.assert_allclose(resumed.train_losses[-1],
+                               ref.train_losses[-1], rtol=1e-4)
+    np.testing.assert_allclose(resumed.dev_losses[-1], ref.dev_losses[-1],
+                               rtol=1e-4)
+    if optimizer_type != "adam":
+        got = (to_jax_numpy(resumed.network) if writer == "jax"
+               else to_numpy((resumed.network.params,
+                              resumed.network.state)))
+        assert_trees_close(to_jax_numpy(ref.network), got, rtol=0,
+                           atol=1e-4)
+
+
+def test_checkpoint_of_the_earlier_layout_loads(corpus, tmp_path):
+    """A .ckpt in the layout the port wrote before it took optax's
+    (torch's state_dict by parameter index) still resumes."""
+    from abnet3_torch.serialize import load_pytree, save_pytree
+    _, tt = _trainers(corpus, tmp_path, 1)
+    tt.num_epochs = 1
+    tt.train()
+    state = tt.optimizer.state_dict()["state"]
+    tree, meta = load_pytree(tt._ckpt_path)
+    tree["opt_state"] = {str(i): {k: v.numpy() for k, v in s.items()}
+                         for i, s in state.items()}
+    del meta["torch_steps"]
+    save_pytree(tt._ckpt_path, tree, meta)
+    tt.optimizer.state.clear()
+    assert tt.load_checkpoint() == 1
+    restored = tt.optimizer.state_dict()["state"]
+    assert restored.keys() == state.keys()
+    for i in state:
+        for k in state[i]:
+            assert torch.equal(restored[i][k], state[i][k])
+
+
+def test_checkpoint_of_another_optimizer_refused(corpus, tmp_path):
+    """A .ckpt whose optimizer state does not fit the trainer's optimizer
+    is refused with both layouts named."""
+    _, tt = _trainers(corpus, tmp_path, 1, optimizer_type="adam", lr=0.01)
+    tt.num_epochs = 1
+    tt.train()
+    _, other = _trainers(corpus, tmp_path, 1, optimizer_type="adadelta")
+    with pytest.raises(ValueError, match=r"\[\[array\(\), tree, tree\], "
+                       r"\[\]\].*adadelta.*\[\[\], \[tree, tree\], \[\]\]"):
+        other.load_checkpoint()
