@@ -1,10 +1,12 @@
 """ABX discriminability evaluation, with the token distances on the card.
 
-The counterpart of ``abnet3_tpu/eval/abx.py`` on the host scorer. Tokens
-live in a device-resident :class:`~abnet3_torch.ops.bank.TokenBank`; the
-O(N^2) normalized DTW distances run on the card (a matmul for the frame
-distances, then the hand-written DTW path-stats kernel), and only the
-(N, N) distance matrix returns to the host for triplet aggregation.
+The counterpart of ``abnet3_tpu/eval/abx.py``. Tokens live in a
+device-resident :class:`~abnet3_torch.ops.bank.TokenBank`; the O(N^2)
+normalized DTW distances run on the card (a matmul for the frame
+distances, then the hand-written DTW path-stats kernel). The (N, N)
+distance matrix either returns to the host for the numpy scorer
+(:func:`abx_error`) or stays on the card for the device scorer
+(:mod:`abnet3_torch.eval.abx_device`, ``distance_matrix(device_out=True)``).
 
 Distances
 ---------
@@ -25,21 +27,21 @@ non-empty cells.
 
 Every DTW distance on the card takes the CUDA kernel and every one on the
 CPU its plain version; the matmuls run in full float32 whatever the
-global TF32 setting (:func:`full_float32`). Not ported yet (they raise
-``NotImplementedError``): the device scorer (``score_backend='device'``),
-checkpoint/resume, ``device_out``, ``host_out=False``,
-``device_rows_per_block`` and ``mesh``.
+global TF32 setting (:func:`full_float32`). ``mesh`` is not ported yet
+(it raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from abnet3_torch.eval import abx_device
 from abnet3_torch.ops.dtw import (anchor_angular_distance_rows,
                                   anchor_kl_distance_rows, dtw_path_stats,
                                   dtw_path_stats_rows,
@@ -53,7 +55,7 @@ __all__ = ["make_pair_distance_fn", "distance_matrix", "abx_error",
 
 def _unported(what: str):
     raise NotImplementedError(f"{what} is not ported to abnet3_torch yet "
-                              "(ROADMAP.md A4)")
+                              "(ROADMAP.md A11)")
 
 
 def _masked_mean_pool(f: torch.Tensor, n: torch.Tensor, T: int
@@ -225,16 +227,88 @@ def _dtw_tile_fn(bank, distance: str, T: int, block: int):
     return tile
 
 
+def _device_rows_per_block(Np: int, block: int, itemsize: int,
+                           requested: Optional[int]) -> Optional[int]:
+    """Rows per device-matrix buffer, a multiple of the tile ``block``
+    (tiles must not straddle buffers); ``None`` = one (Np, Np) buffer.
+    ``requested`` rounds down to the block grid; auto splits only when the
+    single buffer would exceed ``ABNET3_ABX_DEVMAT_GB`` (default 6 GiB),
+    the JAX package's policy, so both packages lay a matrix out alike.
+    ``itemsize``: the bytes stored per value (2 for u16 codes, 4 for
+    dtw_kl's float32)."""
+    if requested is not None:
+        rows = max(block, (requested // block) * block)
+        return rows if rows < Np else None
+    budget = float(os.environ.get("ABNET3_ABX_DEVMAT_GB", "6"))
+    budget_bytes = int(budget * (1 << 30))
+    if Np * Np * itemsize <= budget_bytes:
+        return None
+    per = budget_bytes // max(1, Np * itemsize)
+    return max(block, (per // block) * block)
+
+
+class _DeviceTiles:
+    """The (Np, Np) device matrix that ``distance_matrix(device_out=True)``
+    assembles tile by tile: one buffer, or equal-height row blocks of
+    ``rows_pb`` rows (a multiple of the tile side, so every tile's rows
+    lie in one block). u16 codes are stored in the int16 offset form
+    (:func:`abnet3_torch.eval.abx_device.u16_wire`), dtw_kl's values as
+    float32."""
+
+    def __init__(self, N: int, Np: int, rows_pb: Optional[int], u16: bool,
+                 device):
+        self.N, self.Np, self.u16 = N, Np, u16
+        self.height = Np if rows_pb is None else rows_pb
+        n_blocks = -(-Np // self.height)
+        self.starts = [b * self.height for b in range(n_blocks)]
+        # every value starts as distance 0 (code 0), as in the JAX package
+        zero = -abx_device.U16_OFFSET if u16 else 0.0
+        self.zero = zero
+        self.blocks = [torch.full((self.height, Np), zero,
+                                  dtype=torch.int16 if u16 else torch.float32,
+                                  device=device) for _ in self.starts]
+
+    def _put(self, i0: int, j0: int, w: torch.Tensor) -> None:
+        b = min(i0 // self.height, len(self.blocks) - 1)
+        r = i0 - self.starts[b]
+        self.blocks[b][r:r + w.shape[0], j0:j0 + w.shape[1]] = w
+
+    def write(self, i0: int, j0: int, tile: torch.Tensor) -> None:
+        """One encoded tile (int32 u16 codes, or float32) at (i0, j0): an
+        off-diagonal tile and its transpose, or a diagonal tile as its
+        mirrored upper triangle (the host drain's selection; the mirror
+        runs on the int32 codes, before they narrow: torch has no triu
+        for 16-bit unsigned values)."""
+        if i0 == j0:
+            tile = torch.triu(tile) + torch.triu(tile, 1).T
+        w = abx_device.u16_wire(tile) if self.u16 else tile
+        self._put(i0, j0, w)
+        if i0 != j0:
+            self._put(j0, i0, w.T)
+
+    def handle(self):
+        """Zero the diagonal last and hand the blocks over."""
+        for s, blk in zip(self.starts, self.blocks):
+            r = torch.arange(self.height, device=blk.device)
+            keep = s + r < self.Np
+            blk[r[keep], s + r[keep]] = self.zero
+        return abx_device.DeviceMatrix(blocks=self.blocks,
+                                       row_starts=self.starts, n=self.N)
+
+
 def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
-                           out_dtype) -> np.ndarray:
+                           out_dtype, checkpoint_path=None, device_out=False,
+                           host_out=True, device_rows_per_block=None):
     """Tile strategy: token ids split into tiles of ``block`` ids; only
     the upper tiles run, results mirror. Tiles leave the card u16-coded
-    (float32 for dtw_kl) and dequantize on the host."""
+    (float32 for dtw_kl) and dequantize on the host; with ``device_out``
+    they also land in a device matrix (see :func:`distance_matrix`)."""
     N = len(bank)
     device = bank.bank.device
     T = max_frames if max_frames is not None else bank.max_len
     u16_wire = distance != "dtw_kl"
-    block = _auto_block(N, T, batch_size, itemsize=2 if u16_wire else 4)
+    block = _auto_block(N, T, batch_size, itemsize=2 if u16_wire else 4,
+                        fetch_capped=host_out)
     encode = _encode_tile_u16 if u16_wire else (lambda d: d)
     decode = (_decode_tile_u16 if u16_wire
               else lambda q, dt: np.asarray(q, dtype=dt))
@@ -250,6 +324,11 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
 
     n_tiles = (N + block - 1) // block
     starts = [t * block for t in range(n_tiles)]
+    # padded to whole tiles, so every tile write lies inside the buffer
+    Np = n_tiles * block
+    rows_pb = (_device_rows_per_block(Np, block, 2 if u16_wire else 4,
+                                      device_rows_per_block)
+               if device_out else None)
 
     def tile_ids(t):
         ids = np.arange(starts[t], min(starts[t] + block, N), dtype=np.int64)
@@ -258,7 +337,65 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
             ids = np.concatenate([ids, np.zeros(pad, np.int64)])
         return ids
 
-    D = np.zeros((N, N), out_dtype)
+    done: set = set()
+    meta = {"N": N, "block": block, "dtype": np.dtype(out_dtype).name,
+            "distance": distance, "max_frames": max_frames, "T": T,
+            "wire": "u16" if u16_wire else "f32",
+            # this package's tiles round differently from both JAX
+            # backends ('path-stats', 'path-stats-pallas'), and on the
+            # card (cuBLAS, the CUDA kernel) differently from the CPU:
+            # tiles of one algo never mix with another's
+            "algo": f"abnet3_torch-{device.type}"}
+    if checkpoint_path is not None:
+        mat_path = checkpoint_path + ".npy"
+        prog_path = checkpoint_path + ".tiles.json"
+        resume = False
+        if os.path.exists(mat_path) and os.path.exists(prog_path):
+            with open(prog_path) as f:
+                prog = json.load(f)
+            recorded = {k: prog.get(k) for k in meta}
+            layout = {k: v for k, v in meta.items() if k != "algo"}
+            if recorded == meta:
+                done = {tuple(t) for t in prog["done"]}
+                resume = True
+            elif {k: recorded[k] for k in layout} == layout:
+                # same layout, other numerics: resuming would mix tiles of
+                # two algorithms, discarding would lose computed ones
+                raise RuntimeError(
+                    f"checkpoint {checkpoint_path} was computed with algo "
+                    f"{recorded['algo']!r}, this run computes "
+                    f"{meta['algo']!r}; refusing to mix them or discard "
+                    "its completed tiles (finish it with the package and "
+                    "device that wrote it, or delete it)")
+            else:
+                print("distance_matrix: discarding stale checkpoint "
+                      f"at {checkpoint_path} (layout changed: "
+                      f"{recorded} != {meta})")
+        D = np.lib.format.open_memmap(
+            mat_path, mode="r+" if resume else "w+", dtype=out_dtype,
+            shape=(N, N))
+        if resume and done:
+            print(f"distance_matrix: resuming {checkpoint_path}: "
+                  f"{len(done)}/{n_tiles * (n_tiles + 1) // 2} tiles "
+                  "already computed")
+
+        def record(ti, tj):
+            done.add((ti, tj))
+            D.flush()
+            tmp = prog_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(dict(meta, done=sorted(done)), f)
+            os.replace(tmp, prog_path)
+    else:
+        D = np.zeros((N, N), out_dtype) if host_out else None
+
+        def record(ti, tj):
+            pass
+
+    # tiles restored from a checkpoint never reached the card: the device
+    # matrix is then uploaded from the finished host matrix
+    dev = (_DeviceTiles(N, Np, rows_pb, u16_wire, device)
+           if device_out and not done else None)
     pending: List[Tuple[int, int, torch.Tensor]] = []
     window = 4
 
@@ -276,17 +413,34 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
         D[i0:i0 + ni, j0:j0 + nj] = vals
         if tj != ti:
             D[j0:j0 + nj, i0:i0 + ni] = vals.T
+        record(ti, tj)
 
     for ti in range(n_tiles):
         ids_i = tile_ids(ti)
         for tj in range(ti, n_tiles):
-            pending.append((ti, tj, encode(tile(ids_i, tile_ids(tj)))))
-            if len(pending) >= window:
-                drain_one()
+            if (ti, tj) in done:
+                continue
+            out = encode(tile(ids_i, tile_ids(tj)))
+            if dev is not None:
+                dev.write(starts[ti], starts[tj], out)
+            if host_out:
+                pending.append((ti, tj, out))
+                if len(pending) >= window:
+                    drain_one()
     while pending:
         drain_one()
-    np.fill_diagonal(D, 0)
-    return D
+    if host_out:
+        np.fill_diagonal(D, 0)
+    if not device_out:
+        return D
+    if dev is not None:
+        return D, dev.handle()
+    if rows_pb is not None:
+        # lazy host blocks straight over the checkpoint memmap: no copy
+        # of the whole matrix, one block on the card at a time
+        return D, abx_device.upload_matrix(D, rows_per_block=rows_pb,
+                                           lazy=True, device=device)
+    return D, abx_device.upload_matrix(np.asarray(D), device=device)
 
 
 def distance_matrix(bank, distance: str = "dtw_cos",
@@ -304,31 +458,65 @@ def distance_matrix(bank, distance: str = "dtw_cos",
     - ``'pairs'``: flat fixed-size pair batches (``batch_size`` pairs
       each, (B, T, T) distances, the stats kernel on them);
     - ``'tiles'``: (block, block) tiles, block = min(batch_size, a 2^26
-      transient cap, ~N/4, a 2 MB tile), each row one anchor against the
-      tile's columns in the rows layout; tiles leave the card as uint16
-      fixed point (max error 7.6e-6; float32 for dtw_kl).
+      transient cap, ~N/4, a 2 MB tile while tiles are fetched), each row
+      one anchor against the tile's columns in the rows layout; tiles
+      leave the card as uint16 fixed point (max error 7.6e-6; float32 for
+      dtw_kl).
     - ``'auto'``: pairs below 2048 tokens, tiles from there (mean_cos
       always tiles: its tile is one matmul).
 
-    ``checkpoint_path``, ``device_out``, ``host_out=False``,
-    ``device_rows_per_block`` and ``mesh`` are not ported yet."""
+    ``checkpoint_path`` (tiles; ``'auto'`` then tiles) makes the run
+    resumable: the matrix lives in a ``<path>.npy`` memmap, each drained
+    tile is recorded in ``<path>.tiles.json``, and a rerun with the same
+    path computes only the missing tiles. A checkpoint of another layout
+    is discarded; one of the same layout whose ``algo`` is another
+    package's or device's raises and is left as it is.
+
+    ``device_out=True`` returns ``(D, DeviceMatrix)``: the tiles also land
+    in a device matrix on the bank's device, padded to whole tiles, which
+    :func:`abnet3_torch.eval.abx_device.abx_error_device` scores in place.
+    ``device_rows_per_block`` (or automatically past
+    ``ABNET3_ABX_DEVMAT_GB``) stores it as row blocks. A resumed
+    checkpoint uploads its host matrix instead (lazy blocks over the
+    memmap when blocked), as does the pairs strategy.
+
+    ``host_out=False`` (with ``device_out``, without a checkpoint) fetches
+    no tile: the first element of the pair is ``None``, and the tile side
+    loses its 2 MB fetch cap.
+
+    ``mesh`` is not ported (ROADMAP A11)."""
     assert distance in ("dtw_cos", "dtw_kl", "mean_cos")
     assert strategy in ("auto", "pairs", "tiles")
-    for name, value, default in (
-            ("mesh", mesh, None), ("checkpoint_path", checkpoint_path, None),
-            ("device_out", device_out, False), ("host_out", host_out, True),
-            ("device_rows_per_block", device_rows_per_block, None)):
-        if value != default:
-            _unported(f"distance_matrix({name}={value!r})")
+    if mesh is not None:
+        _unported(f"distance_matrix(mesh={mesh!r})")
+    if not host_out:
+        if not device_out:
+            raise ValueError("host_out=False without device_out=True "
+                             "would compute nothing")
+        if checkpoint_path is not None:
+            raise ValueError("host_out=False cannot checkpoint (tiles "
+                             "are never fetched to the host)")
+    if checkpoint_path is not None and strategy != "tiles":
+        if strategy == "pairs":
+            raise ValueError("checkpoint_path requires the tiles "
+                             "strategy (the pair stream has no tile "
+                             "granularity to resume at)")
+        strategy = "tiles"  # auto: checkpointing implies tiles
     N = len(bank)
     with torch.no_grad(), full_float32():
         if strategy == "pairs" or (strategy == "auto"
                                    and distance != "mean_cos"
                                    and N < _TILE_MIN_TOKENS):
-            return _pairs_distance_matrix(bank, distance, batch_size,
-                                          max_frames, out_dtype)
-        return _tiles_distance_matrix(bank, distance, batch_size,
-                                      max_frames, out_dtype)
+            D = _pairs_distance_matrix(bank, distance, batch_size,
+                                       max_frames, out_dtype)
+            if device_out:
+                return D, abx_device.upload_matrix(
+                    D, device=bank.bank.device)
+            return D
+        return _tiles_distance_matrix(
+            bank, distance, batch_size, max_frames, out_dtype,
+            checkpoint_path=checkpoint_path, device_out=device_out,
+            host_out=host_out, device_rows_per_block=device_rows_per_block)
 
 
 def _block_err(dab: np.ndarray, dax: np.ndarray,
@@ -687,12 +875,23 @@ def evaluate(features_path: str, classes_path: str,
     kept. The token bank and the distances run on ``device`` (default the
     card; ``device="cpu"`` runs the plain versions on the CPU).
 
-    ``score_backend``: ``'host'`` is the numpy occupied-cell scorer
-    (:func:`abx_error`, honours ``n_jobs``). ``'auto'`` resolves to
-    ``'host'``: the JAX package's device scorer gives bit-identical
-    errors, and it is not ported yet (``'device'`` raises
-    ``NotImplementedError``), nor are ``checkpoint_path``,
-    ``device_rows_per_block`` and ``mesh``."""
+    ``score_backend``: where the triplet aggregation runs.
+
+    - ``'host'``: the numpy occupied-cell scorer (:func:`abx_error`,
+      honours ``n_jobs``).
+    - ``'device'``: :func:`abnet3_torch.eval.abx_device.abx_error_device`
+      on ``device``, over the matrix ``distance_matrix(device_out=True)``
+      leaves there; the tiles are not fetched unless ``checkpoint_path``
+      keeps the host matrix. Bit-identical error.
+    - ``'auto'`` (default): device from 2,048 tokens (the tile strategy's
+      scale), host below; also host when a cell of the inventory carries
+      2^24 triplets or more (checked before the distance stage), where
+      ``'device'`` raises.
+
+    ``checkpoint_path`` makes the distance stage resumable and
+    ``device_rows_per_block`` lays the device matrix out in row blocks
+    (:func:`distance_matrix`). ``mesh`` is not ported (ROADMAP A11).
+    """
     from abnet3_torch.io.h5f import iter_h5features
     from abnet3_torch.ops.bank import TokenBank
     from abnet3_torch.sampler import SamplerClusterSiamese
@@ -701,12 +900,8 @@ def evaluate(features_path: str, classes_path: str,
 
     device = resolve_device(device)
     assert score_backend in ("auto", "host", "device")
-    if score_backend == "device":
-        _unported("evaluate(score_backend='device')")
-    for name, value in (("mesh", mesh), ("checkpoint_path", checkpoint_path),
-                        ("device_rows_per_block", device_rows_per_block)):
-        if value is not None:
-            _unported(f"evaluate({name}=...)")
+    if mesh is not None:
+        _unported("evaluate(mesh=...)")
     spkid = read_spkid_file(spkid_file) if spkid_file else None
     # token specs (label, file, on, off, speaker-or-None, by-key) in
     # inventory order, grouped by file for the single streaming pass
@@ -781,12 +976,35 @@ def evaluate(features_path: str, classes_path: str,
             "unit/offset as the feature time labels"
             % (classes_path, features_path))
     bank = TokenBank(token_feats, max_frames=max_frames, device=device)
-    D = distance_matrix(bank, distance=distance, batch_size=batch_size,
-                        max_frames=max_frames, out_dtype=out_dtype)
+    by = by_keys if item_by else None
+    use_device = (score_backend == "device"
+                  or (score_backend == "auto"
+                      and len(bank) >= _TILE_MIN_TOKENS))
+    # checked before the distance stage: a run that fetches no tile has
+    # no host matrix to fall back to
+    if use_device and not abx_device.device_scorable(labels, speakers,
+                                                     task, by=by):
+        if score_backend == "device":
+            raise ValueError(
+                "score_backend='device': a cell of this inventory "
+                "carries >= 2^24 triplets (float32 device bins "
+                "would round); use the host backend")
+        use_device = False
+    # a device-scored run fetches the tiles only to keep a checkpoint
+    result = distance_matrix(
+        bank, distance=distance, batch_size=batch_size,
+        max_frames=max_frames, out_dtype=out_dtype,
+        checkpoint_path=checkpoint_path, device_out=use_device,
+        host_out=(not use_device) or checkpoint_path is not None,
+        device_rows_per_block=device_rows_per_block if use_device else None)
     want_cells = cells_path is not None
-    out = abx_error(D, labels, speakers, task=task,
-                    by=by_keys if item_by else None, n_jobs=n_jobs,
-                    return_cells=want_cells)
+    if use_device:
+        out = abx_device.abx_error_device(result[1], labels, speakers,
+                                          task=task, by=by,
+                                          return_cells=want_cells)
+    else:
+        out = abx_error(result, labels, speakers, task=task, by=by,
+                        n_jobs=n_jobs, return_cells=want_cells)
     if want_cells:
         _write_cells_csv(cells_path, out.pop("cells"), task,
                          item_by if item_by else None)
@@ -834,7 +1052,24 @@ def main(argv=None):
                         help="store the host distance matrix as float16")
     parser.add_argument("-j", "--n-jobs", type=int, default=1,
                         help="parallel scoring workers (fork pool; "
-                             "results are bit-identical to -j 1)")
+                             "results are bit-identical to -j 1; host "
+                             "backend only)")
+    parser.add_argument("--score-backend", default="auto",
+                        choices=["auto", "host", "device"],
+                        help="where triplet aggregation runs: 'device' "
+                             "scores on --device over the device-resident "
+                             "distance matrix (bit-identical error); "
+                             "'auto' picks device from 2,048 tokens")
+    parser.add_argument("--device-rows-per-block", type=int,
+                        default=None, metavar="ROWS",
+                        help="store the device-resident distance matrix "
+                             "as row blocks of this many rows (automatic "
+                             "past ABNET3_ABX_DEVMAT_GB, default 6 GiB)")
+    parser.add_argument("--checkpoint", type=str, default=None,
+                        help="make the (tiles-strategy) distance matrix "
+                             "resumable: tiles land in <path>.npy + "
+                             "<path>.tiles.json; rerunning with the "
+                             "same path computes only the missing tiles")
     parser.add_argument("--device", default=None,
                         help="torch device of the distances (default: "
                              "the card; 'cpu' runs the plain versions)")
@@ -854,6 +1089,9 @@ def main(argv=None):
                       item_speaker=args.item_speaker,
                       item_by=args.item_by,
                       n_jobs=args.n_jobs,
+                      score_backend=args.score_backend,
+                      checkpoint_path=args.checkpoint,
+                      device_rows_per_block=args.device_rows_per_block,
                       cells_path=args.cells_path,
                       device=args.device)
     line = json.dumps(result)

@@ -292,8 +292,10 @@ class GridSearch:
         block with ``run`` + ``evaluate()`` arguments), written to
         ``abx.json`` in the experiment directory. The token inventory
         defaults to the sampler's .classes file, the speaker map to its
-        spkid_file; the port scores on the host
-        (:func:`abnet3_torch.eval.abx.evaluate`)."""
+        spkid_file; the arguments go to
+        :func:`abnet3_torch.eval.abx.evaluate` as they are
+        (``score_backend``, ``checkpoint_path``, ``device_rows_per_block``
+        and ``device`` among them)."""
         abx_prop = single_experiment.get("abx")
         if not abx_prop or abx_prop.get("run", "always") == "never":
             return

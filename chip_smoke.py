@@ -68,14 +68,21 @@ Phases, each printing JSON lines:
 11. eval_path: the trained network embeds the corpus through
     ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
     inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from
-    the embeddings goes through ``distance_matrix`` (dtw_cos, tiles of
-    1,024: 10 tiles, one stats-kernel launch per row, 10,240 in all) and
-    ``abx_error`` (across); the matrix must be symmetric with a zero
-    diagonal, and on 128 tokens the card and the CPU (plain version) must
-    agree within 2 u16 steps, their ABX errors within 1e-3. The card's
-    stages run in memory: the machine with the card has no h5py, so
-    ``generate()``/``embed()``/``evaluate()``'s file layer is held
-    against the JAX package by the CPU tests;
+    the embeddings goes through ``distance_matrix(device_out=True)``
+    (dtw_cos, tiles of 1,024: 10 tiles, one stats-kernel launch per row),
+    which returns the host matrix and the u16 device matrix; the matrix
+    must be symmetric with a zero diagonal and the device matrix must
+    decode to it exactly. The device scorer (``abx_error_device``) must
+    equal the host scorer (``abx_error``) bit for bit for both tasks, on
+    that device matrix, on the host matrix uploaded as row blocks of
+    1,024 and as lazy blocks over a memmap of it; the fetch-free route
+    (``host_out=False``, row blocks of 2,048) must score the same. Two
+    distance passes: 20,480 stats-kernel launches. On 128 tokens the card
+    and the CPU (plain version) must agree within 2 u16 steps, their ABX
+    errors within 1e-3. The card's stages run in memory: the machine
+    with the card has no h5py, so ``generate()``/``embed()``/
+    ``evaluate()``'s file layer is held against the JAX package by the
+    CPU tests;
 12. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
@@ -87,9 +94,9 @@ Phases, each printing JSON lines:
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
 14. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
-    steps (the device loader's batch building included) and over one ABX
-    tile of 1,024 rows: device time by group, launches and the busy
-    share.
+    steps (the device loader's batch building included), over one ABX
+    tile of 1,024 rows and over one device scoring pass (across):
+    device time by group, launches and the busy share.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line the ``ok`` object. Any failure raises
@@ -915,12 +922,47 @@ def eval_inventory(embedded, seed=1, n_classes=512, per_class=8,
     return tokens, labels, np.asarray(speakers)
 
 
+def score_both(D, handle, labels, speakers, task):
+    """One task scored by the host scorer on ``D`` and by the device
+    scorer on ``handle``: the results must be equal bit for bit. Returns
+    (device result, host seconds, device seconds, device peak bytes above
+    what was allocated before)."""
+    from abnet3_torch.eval.abx import abx_error
+    from abnet3_torch.eval.abx_device import abx_error_device
+    t0 = time.perf_counter()
+    host = abx_error(D, labels, speakers, task=task)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dev = abx_error_device(handle, labels, speakers, task=task)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    check_same_score(host, dev, f"{task}: host vs device")
+    if not math.isfinite(dev["error"]) or dev["n_cells"] == 0:
+        raise AssertionError(f"ABX score {dev}")
+    return dev, host_s, dev_s, peak
+
+
+def check_same_score(a, b, what):
+    keys = ("error", "n_cells", "n_triplets")
+    if [a[k] for k in keys] != [b[k] for k in keys]:
+        raise AssertionError(f"{what}: {a} != {b}")
+
+
 def phase_eval_path(network, features, batch_size=5000, n_classes=512,
                     block=1024):
     """Embed -> distance matrix -> ABX score, in memory, on the card.
-    ``n_classes`` x 8 tokens, ``block`` tokens per tile side."""
+    ``n_classes`` x 8 tokens, ``block`` tokens per tile side. Returns the
+    bank, the stats kernel's and the cost kernel's launches over the two
+    distance passes, and a callable that scores the across task once on
+    the card (for the profile)."""
     from abnet3_torch.embedder import EmbedderSiamese
-    from abnet3_torch.eval.abx import abx_error, distance_matrix
+    from abnet3_torch.eval.abx import (_decode_tile_u16, abx_error,
+                                       distance_matrix)
+    from abnet3_torch.eval.abx_device import abx_error_device, upload_matrix
     from abnet3_torch.ops.bank import TokenBank
     from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_path_cuda,
                                            dtw_path_stats_cuda)
@@ -945,25 +987,76 @@ def phase_eval_path(network, features, batch_size=5000, n_classes=512,
     N = len(bank)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    D = distance_matrix(bank, "dtw_cos", batch_size=block)
+    D, handle = distance_matrix(bank, "dtw_cos", batch_size=block,
+                                device_out=True)
+    torch.cuda.synchronize()
     dist_s = time.perf_counter() - t0
-    launches = dtw_path_stats_cuda.launches
-    path_launches = dtw_path_cuda.launches
-    costs_launches = dtw_costs_cuda.launches
-    side = -(-N // block)
-    n_tiles = side * (side + 1) // 2
-    if launches != n_tiles * block:
-        raise AssertionError(f"{launches} stats-kernel launches, expected "
-                             f"{n_tiles * block}")
     if not (np.array_equal(D, D.T) and not np.diag(D).any()
             and np.isfinite(D).all() and D.min() >= 0 and D.max() <= 1):
         raise AssertionError("the distance matrix is not a symmetric "
                              "[0, 1] matrix with a zero diagonal")
+    if not np.array_equal(_decode_tile_u16(handle.numpy(), D.dtype), D):
+        raise AssertionError("the device matrix does not decode to the "
+                             "host matrix")
+
+    # the device scorer against the host scorer, both tasks, bit for bit
+    scores = {}
+    for task in ("across", "within"):
+        dev, host_s, dev_s, peak = score_both(D, handle, labels, speakers,
+                                              task)
+        scores[task] = {"error": dev["error"], "n_cells": dev["n_cells"],
+                        "n_triplets": dev["n_triplets"], "score_s": host_s,
+                        "score_device_s": dev_s,
+                        "score_device_peak_bytes": peak}
+    # the same matrix as row blocks on the card and as lazy blocks over a
+    # memmap of it: the same scores
+    mm_path = os.path.join(OUT, "eval_distances.npy")
+    mm = np.lib.format.open_memmap(mm_path, mode="w+", dtype=D.dtype,
+                                   shape=D.shape)
+    mm[:] = D
+    mm.flush()
+    del mm
+    layouts = {"blocked": upload_matrix(D, rows_per_block=block),
+               "lazy": upload_matrix(np.load(mm_path, mmap_mode="r"),
+                                     rows_per_block=block, lazy=True)}
+    layout_s = {}
+    for name, dm in layouts.items():
+        layout_s[name] = {}
+        for task in ("across", "within"):
+            t0 = time.perf_counter()
+            got = abx_error_device(dm, labels, speakers, task=task)
+            layout_s[name][task] = time.perf_counter() - t0
+            check_same_score(scores[task], got, f"{name} {task}")
+    del layouts
+
+    # the fetch-free route: no tile leaves the card, row blocks of two
+    # tile sides (2,048 rows)
+    side = -(-N // block)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    score = abx_error(D, labels, speakers, task="across")
-    score_s = time.perf_counter() - t0
-    if not math.isfinite(score["error"]) or score["n_cells"] == 0:
-        raise AssertionError(f"ABX score {score}")
+    none_D, free = distance_matrix(bank, "dtw_cos", batch_size=block,
+                                   device_out=True, host_out=False,
+                                   device_rows_per_block=2 * block)
+    torch.cuda.synchronize()
+    free_dist_s = time.perf_counter() - t0
+    if none_D is not None or len(free.blocks) != -(-side // 2):
+        raise AssertionError(f"fetch-free route: {type(none_D)}, "
+                             f"{len(free.blocks)} blocks")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = abx_error_device(free, labels, speakers, task="across")
+    torch.cuda.synchronize()
+    free_score_s = time.perf_counter() - t0
+    check_same_score(scores["across"], got, "fetch-free across")
+    del free
+
+    launches = dtw_path_stats_cuda.launches
+    path_launches = dtw_path_cuda.launches
+    costs_launches = dtw_costs_cuda.launches
+    n_tiles = side * (side + 1) // 2
+    if launches != 2 * n_tiles * block:
+        raise AssertionError(f"{launches} stats-kernel launches, expected "
+                             f"{2 * n_tiles * block} (two passes)")
 
     # the card against the CPU's plain versions on the first 128 tokens
     # (16 whole classes), tiles of 32: within 2 u16 steps, the errors
@@ -988,12 +1081,23 @@ def phase_eval_path(network, features, batch_size=5000, n_classes=512,
           "bank_shape": list(bank.bank.shape),
           "distance_s": dist_s, "pairs": pairs,
           "pairs_per_s": pairs / dist_s, "tiles": n_tiles,
+          "fetch_free_distance_s": free_dist_s,
+          "fetch_free_pairs_per_s": pairs / free_dist_s,
+          "fetch_free_score_device_s": free_score_s,
           "stats_launches": launches, "path_launches": path_launches,
-          "costs_launches": costs_launches, "score_s": score_s, "error": score["error"],
-          "n_cells": score["n_cells"], "n_triplets": score["n_triplets"],
+          "costs_launches": costs_launches, "scores": scores,
+          "layout_score_device_s": layout_s,
+          "score_s": scores["across"]["score_s"],
+          "score_device_s": scores["across"]["score_device_s"],
+          "error": scores["across"]["error"],
+          "n_cells": scores["across"]["n_cells"],
+          "n_triplets": scores["across"]["n_triplets"],
           "check_tokens": 128, "card_vs_cpu_max_diff": diff,
           "card_vs_cpu_error": [err_card, err_cpu], "cpu_tiles_s": cpu_s})
-    return bank, launches, costs_launches
+
+    def score_run():
+        abx_error_device(handle, labels, speakers, task="across")
+    return bank, launches, costs_launches, score_run
 
 
 def phase_gridsearch(wavdir, classes, spk, device=None):
@@ -1358,8 +1462,8 @@ def main():
     trainer, loader, launches, costs_main = phase_main_path(features, pairs)
     g_trainer, g_loader, moves_launches, costs_gather = phase_gather_path(
         trainer, loader)
-    bank, stats_launches, costs_eval = phase_eval_path(trainer.network,
-                                                       loader.features)
+    bank, stats_launches, costs_eval, score_run = phase_eval_path(
+        trainer.network, loader.features)
     # no path runs the cost kernel: each path phase reads its count
     costs_launches = costs_main + costs_gather + costs_eval
     if costs_launches != 0:
@@ -1373,6 +1477,7 @@ def main():
     phase_profile("gather_step", gather_steps_run(g_trainer, g_loader),
                   reps=10)
     phase_profile("abx_tile", abx_tile_run(bank), reps=1, per_row=1024)
+    phase_profile("abx_score", score_run, reps=1)
     emit({"kernels": [
         kernel_line("dtw_path", "abnet3_torch/csrc/dtw_path.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:227", [32, 96, 96],

@@ -206,10 +206,27 @@ def test_distance_matrix_float16_and_max_frames():
                                 {"checkpoint_path": "x"},
                                 {"device_out": True},
                                 {"device_rows_per_block": 64}])
-def test_distance_matrix_unported_options_raise(kw):
+def test_distance_matrix_unported_options_raise(kw, tmp_path):
+    """``mesh`` is the one option still unported (it raises); the
+    checkpoint and the device-resident outputs, ported since, run on a
+    tiny bank and give the host matrix (tests/test_torch_abx_device.py
+    holds them against the JAX package)."""
     bank = TorchBank(_token_feats(0, n=4), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tabx.distance_matrix(bank, **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="A11"):
+            tabx.distance_matrix(bank, **kw)
+        return
+    if "checkpoint_path" in kw:
+        kw = {"checkpoint_path": str(tmp_path / kw["checkpoint_path"])}
+    plain = tabx.distance_matrix(bank, strategy="tiles")
+    out = tabx.distance_matrix(bank, strategy="tiles", **kw)
+    D = out[0] if isinstance(out, tuple) else out
+    np.testing.assert_array_equal(D, plain)
+    if isinstance(out, tuple):
+        q = out[1].numpy()
+        assert q.dtype == np.uint16
+        np.testing.assert_array_equal(tabx._decode_tile_u16(q, np.float32),
+                                      plain)
 
 
 def test_full_float32_restores_tf32_flags():
@@ -310,9 +327,20 @@ def test_evaluate_item_file_matches_jax(tmp_path):
 
 
 def test_evaluate_device_scorer_is_unported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tabx.evaluate("missing.h5f", "missing.classes",
-                      score_backend="device", device="cpu")
+    """The device scorer is ported: ``score_backend='device'`` gives the
+    host backend's result exactly, and ``mesh`` still raises."""
+    path, items, toks = _write_corpus(tmp_path, seed=3)
+    classes = tmp_path / "t.classes"
+    classes.write_text("".join(
+        f"Class {c}\n" + "".join(f"{f} {on:.3f} {off:.3f}\n"
+                                   for ci, f, on, off in toks if ci == c)
+        + "\n" for c in range(5)))
+    kw = dict(task="within", device="cpu")
+    host = tabx.evaluate(path, str(classes), score_backend="host", **kw)
+    assert tabx.evaluate(path, str(classes), score_backend="device",
+                         **kw) == host
+    with pytest.raises(NotImplementedError, match="A11"):
+        tabx.evaluate(path, str(classes), mesh=object(), **kw)
 
 
 def test_cli_runs_on_cpu(tmp_path, capsys):

@@ -279,3 +279,61 @@ def test_front_end_on_the_card_matches_the_cpu(cuda_device, method, deltas):
     cpu = spectral_frames_batch(wavs, 16000, **kw)
     assert card.device.type == "cuda" and card.shape == cpu.shape
     assert float((card.cpu() - cpu).abs().max()) <= 1e-3
+
+
+def _scores_equal(a, b):
+    assert (a["error"], a["n_cells"], a["n_triplets"]) == \
+        (b["error"], b["n_cells"], b["n_triplets"])
+    assert a["cells"] == b["cells"]
+
+
+def _labels(n, n_classes, n_spk, seed):
+    g = torch.Generator().manual_seed(seed)
+    return ([f"c{int(v)}" for v in torch.randint(0, n_classes, (n,),
+                                                 generator=g)],
+            [f"s{int(v)}" for v in torch.randint(0, n_spk, (n,),
+                                                 generator=g)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 32])
+def test_device_scorer_on_the_card_equals_the_cpu(cuda_device, rows):
+    """``distance_matrix(device_out=True)``'s u16 matrix on the card and a
+    float32 host upload (row blocks of 32 with chunk=8: anchors padded
+    outside their block, the clamped gather), each scored on the card
+    and on the CPU: bit-identical errors and cells, equal to the host
+    scorer's."""
+    import numpy as np
+
+    from abnet3_torch.eval.abx import abx_error, distance_matrix
+    from abnet3_torch.eval.abx_device import abx_error_device, upload_matrix
+    from abnet3_torch.ops.bank import TokenBank
+    g = torch.Generator().manual_seed(10)
+    n = 100
+    feats = {i: torch.randn(int(torch.randint(5, 30, (1,), generator=g)),
+                            12, generator=g).numpy() for i in range(n)}
+    D, dm = distance_matrix(TokenBank(feats, device=cuda_device),
+                            batch_size=32, strategy="tiles", device_out=True,
+                            device_rows_per_block=rows)
+    assert dm.device.type == cuda_device.type
+    assert dm.blocks[0].dtype == torch.int16
+    assert len(dm.blocks) == (1 if rows is None else 4)
+    labels, speakers = _labels(n, 9, 4, seed=11)
+    cpu = upload_matrix(dm.numpy(), rows_per_block=rows, device="cpu")
+    for task in ("across", "within"):
+        kw = dict(task=task, return_cells=True)
+        card = abx_error_device(dm, labels, speakers, **kw)
+        _scores_equal(card, abx_error_device(cpu, labels, speakers, **kw))
+        _scores_equal(card, abx_error(D, labels, speakers, **kw))
+
+    q = (torch.randint(0, 24, (n, n), generator=g).float() / 24).numpy()
+    Dq = np.triu(q, 1) + np.triu(q, 1).T
+    for task in ("across", "within"):
+        kw = dict(task=task, return_cells=True, chunk=8)
+        card = abx_error_device(upload_matrix(Dq, rows_per_block=rows,
+                                              device=cuda_device),
+                                labels, speakers, **kw)
+        _scores_equal(card, abx_error_device(Dq, labels, speakers,
+                                             device="cpu", **kw))
+        kw.pop("chunk")
+        _scores_equal(card, abx_error(Dq, labels, speakers, **kw))

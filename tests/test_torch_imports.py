@@ -24,6 +24,7 @@ SLICE_MODULES = [
     "abnet3_torch.parallel.mesh", "abnet3_torch.dataloader",
     "abnet3_torch.trainer", "abnet3_torch.sampler",
     "abnet3_torch.embedder", "abnet3_torch.eval", "abnet3_torch.eval.abx",
+    "abnet3_torch.eval.abx_device",
     "abnet3_torch.ops.dsp", "abnet3_torch.features", "abnet3_torch.model",
     "abnet3_torch.gridsearch", "abnet3_torch.profiling",
     "chip_smoke",
