@@ -1,6 +1,7 @@
 """Device-resident token bank: the whole training corpus lives on the card.
 
-The counterpart of ``abnet3_tpu/ops/bank.py``'s ``TokenBank``. Every
+The counterpart of ``abnet3_tpu/ops/bank.py``'s ``TokenBank`` and
+``upload_rows``. Every
 unique token is copied once into one padded ``(N_tokens, T_max, d)``
 float32 tensor, so a train step receives only token ids and gathers its
 frames on the device.
@@ -15,13 +16,21 @@ import torch
 
 from abnet3_torch.utils import resolve_device
 
-__all__ = ["TokenBank"]
+__all__ = ["TokenBank", "upload_rows"]
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
     """Round up to a multiple of 16. A bank is built once per run, and the
     DTW DP cost is quadratic in the padded length."""
     return max(minimum, ((n + 15) // 16) * 16)
+
+
+def upload_rows(arr: np.ndarray, device=None) -> torch.Tensor:
+    """A host (N, ...) array as one float32 tensor on ``device`` (default:
+    the card): the frame tables of the tcl mixing and of the frame
+    loaders."""
+    return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
+        resolve_device(device))
 
 
 class TokenBank:

@@ -1,17 +1,19 @@
 """Trainers: the epoch loop and early stopping around the train step.
 
 The counterpart of ``abnet3_tpu/trainer.py`` for ``TrainerSiamese`` on the
-batches of :class:`~abnet3_torch.dataloader.OriginalDataLoader`: split
-bank batches (the flagship recipe) and aligned frame-pair batches (the
-device backend). It runs an epoch-0 eval pass, dev-loss early stopping
-with patience, best-network ``.pth`` + pickled ``.params`` outputs, a
-resumable checkpoint and JSONL loss logs.
+batches of the pair-file loaders of :mod:`abnet3_torch.dataloader`: split
+and mixed bank batches, frame-table index batches and aligned frame-pair
+batches (device and host backends). It runs an epoch-0 eval pass,
+dev-loss early stopping with patience, best-network ``.pth`` + pickled
+``.params`` outputs, a resumable checkpoint and JSONL loss logs; with
+``prefetch`` a worker thread builds the batches ahead.
 
-The JAX trainer buffers bank batches per length bucket and dispatches them
-``steps_per_call`` at a time; this trainer keeps that buffering and runs
-the buffered batches one step at a time in the same order, so both
-packages take the same steps and report the same per-batch losses for
-every ``steps_per_call``. A frame-pair batch takes one step as it comes.
+The JAX trainer buffers index batches per (kind, length bucket, mode) and
+dispatches them ``steps_per_call`` at a time; this trainer keeps that
+buffering and runs the buffered batches one step at a time in the same
+order, so both packages take the same steps and report the same
+per-batch losses for every ``steps_per_call``. A frame-pair batch takes
+one step as it comes.
 The JAX trainer pads a frame-pair batch's rows to a power of two (at
 least 256) with weight 0 so that its jitted step compiles once per
 bucket; the padding moves neither the weighted loss nor the weighted
@@ -29,7 +31,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from abnet3_torch.dataloader import Batch, SplitBankBatch
+from abnet3_torch.dataloader import (Batch, BankBatch, FrameBankBatch,
+                                     SplitBankBatch, prefetch_iterator)
 from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import (jax_param_slots, load_jax_numpy,
@@ -102,9 +105,10 @@ class TrainerBuilder:
     network must already live there. ``mesh`` must stay None (multi-GPU
     is not ported). ``matrix_loss`` picks the split bank step's mode
     (None: matrix mode whenever the loss has a cell decomposition; False:
-    the gather path). ``prefetch`` is accepted for the YAML
-    schema and unused: the steps run asynchronously on the card, so the
-    host builds the next batch while the card computes."""
+    the gather path). ``prefetch`` > 0 builds that many batches ahead on
+    a worker thread (:func:`abnet3_torch.dataloader.prefetch_iterator`),
+    as the JAX trainer does; 0 builds each batch in the training
+    thread."""
 
     def __init__(self, network=None, loss=None,
                  num_epochs=200, patience=20,
@@ -366,65 +370,110 @@ class TrainerBuilder:
 
 
 class TrainerSiamese(TrainerBuilder):
-    """Siamese trainer over split bank batches (reference
-    trainer.py:203-256)."""
+    """Siamese trainer over the loaders' batches (reference
+    trainer.py:203-256): index batches (:class:`SplitBankBatch`,
+    :class:`BankBatch`, :class:`FrameBankBatch`) buffered per key and run
+    through the step of their kind, and aligned frame-pair batches
+    (:class:`Batch`) through the frame-pair step as they come."""
 
-    def _ensure_split_bank_steps(self, bucket):
-        """(train_step, eval_step) of one length bucket."""
-        if bucket not in self._step_fns:
-            from abnet3_torch.parallel import make_split_pair_train_step
-            self._step_fns[bucket] = make_split_pair_train_step(
-                self.network, self.loss, self.optimizer,
-                self.dataloader.token_bank,
-                align_different_words=getattr(
-                    self.dataloader, "align_different_words", False),
-                max_frames=bucket, matrix_loss=self.matrix_loss)
-        return self._step_fns[bucket]
+    def _steps_for(self, b):
+        """(train_step, eval_step) of an index batch, made once per kind
+        and length bucket (split or mixed bank batches) or mode
+        (frame-table batches)."""
+        from abnet3_torch import parallel
+        if isinstance(b, FrameBankBatch):
+            key = ("frame", b.mode)
+        else:
+            key = (type(b).__name__, b.bucket)
+        if key not in self._step_fns:
+            dl = self.dataloader
+            args = (self.network, self.loss, self.optimizer)
+            if isinstance(b, FrameBankBatch):
+                self._step_fns[key] = parallel.make_frame_train_step(
+                    *args, dl.frame_tables(b.mode == "train"))
+            else:
+                tcl = getattr(dl, "tcl", 0.0)
+                # the pure-tcl TemporalCoherenceDataLoader holds a frame
+                # bank with tcl == 0: only tcl mixing passes it on
+                make = (parallel.make_split_pair_train_step
+                        if isinstance(b, SplitBankBatch)
+                        else parallel.make_pair_train_step)
+                self._step_fns[key] = make(
+                    *args, dl.token_bank, max_frames=b.bucket,
+                    align_different_words=getattr(
+                        dl, "align_different_words", False),
+                    matrix_loss=self.matrix_loss,
+                    frame_bank=dl.frame_bank if tcl > 0 else None,
+                    tcl=tcl)
+        return self._step_fns[key]
 
     @property
     def _bank_steps_per_call(self):
         return max(getattr(self.dataloader, "steps_per_call", 1), 1)
 
-    def _args_for(self, b: SplitBankBatch):
-        """The batch's ids and weights as tensors on the trainer's
-        device: one copy for the ids, one for the weights."""
-        ids = np.concatenate([b.ids1s, b.ids2s, b.ids1d, b.ids2d]
-                             ).astype(np.int64)
-        w = np.concatenate([b.ws, b.wd]).astype(np.float32)
-        ids, w = torch.from_numpy(ids), torch.from_numpy(w)
-        if self.device.type == "cuda":
-            ids = ids.pin_memory().to(self.device, non_blocking=True)
-            w = w.pin_memory().to(self.device, non_blocking=True)
-        Bs, Bd = len(b.ids1s), len(b.ids1d)
-        ids1s, ids2s, ids1d, ids2d = torch.split(ids, [Bs, Bs, Bd, Bd])
-        ws, wd = torch.split(w, [Bs, Bd])
-        return ids1s, ids2s, ws, ids1d, ids2d, wd
+    def _upload(self, arrays):
+        """Host arrays as tensors on the trainer's device: the integer
+        ones (indices, int64) in one copy, the float ones (float32) in
+        another, pinned on the card."""
+        groups = {True: [], False: []}
+        for a in arrays:
+            a = np.asarray(a)
+            groups[a.dtype.kind in "iu"].append(a)
+        out = {}
+        for is_int, group in groups.items():
+            if not group:
+                continue
+            flat = torch.from_numpy(np.concatenate(group).astype(
+                np.int64 if is_int else np.float32))
+            if self.device.type == "cuda":
+                flat = flat.pin_memory().to(self.device, non_blocking=True)
+            out[is_int] = iter(torch.split(flat, [len(a) for a in group]))
+        return tuple(next(out[np.asarray(a).dtype.kind in "iu"])
+                     for a in arrays)
 
-    def _run_step(self, b: SplitBankBatch, do_training: bool):
-        """One train (or eval) step on one batch; returns its loss as a
-        0-d device tensor."""
-        train_step, eval_step = self._ensure_split_bank_steps(b.bucket)
+    def _args_for(self, b):
+        """The step arguments of an index batch, on the trainer's
+        device."""
+        if isinstance(b, SplitBankBatch):
+            args = (b.ids1s, b.ids2s, b.ws, b.ids1d, b.ids2d, b.wd)
+        elif isinstance(b, FrameBankBatch):
+            w = b.weights if b.weights is not None else \
+                np.ones(len(b.y), np.float32)
+            args = (b.i1, b.i2, b.y, w)
+        else:
+            args = (b.ids1, b.ids2, b.y, b.pair_w)
+        if getattr(b, "tcl_i1", None) is not None:
+            args += (b.tcl_i1, b.tcl_i2, b.tcl_y, b.tcl_w)
+        return self._upload(args)
+
+    def _run_step(self, b, do_training: bool):
+        """One train (or eval) step on one index batch; returns its loss
+        as a 0-d device tensor."""
+        train_step, eval_step = self._steps_for(b)
         step = train_step if do_training else eval_step
         return step(*self._args_for(b))
 
     def _give_buffered_batch(self, b, do_training):
-        """Batches accumulate into per-bucket buffers of K =
-        steps_per_call and run when a buffer fills, in buffer order (the
-        order of the JAX trainer's chained dispatches). Returns the list
-        of per-batch losses run now (empty while buffering)."""
+        """Index batches accumulate into buffers of K = steps_per_call per
+        key (kind, length bucket, mode) and run when a buffer fills, in
+        buffer order (the order of the JAX trainer's chained dispatches).
+        Returns the list of per-batch losses run now (empty while
+        buffering)."""
         K = self._bank_steps_per_call
         if K == 1:
             return [self._run_step(b, do_training)]
         bufs = self._bufs[do_training]
-        buf = bufs.setdefault(b.bucket, [])
+        key = (type(b).__name__, getattr(b, "bucket", None),
+               getattr(b, "mode", None))
+        buf = bufs.setdefault(key, [])
         buf.append(b)
         if len(buf) < K:
             return []
-        bufs[b.bucket] = []
+        bufs[key] = []
         return [self._run_step(x, do_training) for x in buf]
 
     def _flush_buffers(self, do_training):
-        """Run the partial buffers left at pass end, buckets in order of
+        """Run the partial buffers left at pass end, keys in order of
         first appearance."""
         bufs = self._bufs[do_training]
         out = [self._run_step(x, do_training)
@@ -446,18 +495,32 @@ class TrainerSiamese(TrainerBuilder):
     def give_batch_to_network(self, batch, do_training):
         """Run or buffer one batch; returns the per-batch losses of the
         steps it released (reference trainer.py:211-224)."""
-        if isinstance(batch, SplitBankBatch):
+        if isinstance(batch, (SplitBankBatch, BankBatch, FrameBankBatch)):
             return self._give_buffered_batch(batch, do_training)
         if isinstance(batch, Batch):
             return [self._frame_pair_step(batch, do_training)]
         raise NotImplementedError(
-            f"{type(batch).__name__}: abnet3_torch trains on split bank "
-            "batches and aligned frame-pair batches only")
+            f"{type(batch).__name__}: abnet3_torch trains on index batches "
+            "and aligned frame-pair batches only")
+
+    def _batches(self, train_mode: bool):
+        """One pass of the loader's batches; with ``prefetch`` > 0 built
+        by a worker thread ``prefetch`` batches ahead. On the card the
+        worker launches on the stream that the steps read, so its
+        kernels and copies stay ordered before the steps that use
+        them."""
+        batches = self.dataloader.batch_iterator(train_mode=train_mode)
+        if not self.prefetch or self.prefetch <= 0:
+            return batches
+        if self.device.type == "cuda":
+            batches = _on_stream(batches,
+                                 torch.cuda.current_stream(self.device))
+        return prefetch_iterator(batches, self.prefetch)
 
     def _pass(self, train_mode: bool, do_training: bool):
         """Losses of one pass over a split's batches."""
         losses = []
-        for batch in self.dataloader.batch_iterator(train_mode=train_mode):
+        for batch in self._batches(train_mode):
             losses += self.give_batch_to_network(batch, do_training)
         losses += self._flush_buffers(do_training)
         return losses
@@ -480,3 +543,10 @@ class TrainerSiamese(TrainerBuilder):
         self.statistics_training = dict(
             getattr(self.dataloader, "statistics_training", {}))
         return self.dev_losses[-1]
+
+
+def _on_stream(iterator, stream):
+    """``iterator`` run under ``stream`` in whichever thread advances it
+    (a thread starts on the default stream of its device)."""
+    with torch.cuda.stream(stream):
+        yield from iterator

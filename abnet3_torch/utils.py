@@ -3,9 +3,10 @@ access, device choice.
 
 A copy of the parts of ``abnet3_tpu/utils.py`` that the port uses, with
 the same file formats and semantics (the sampling helpers draw from the
-global ``np.random`` exactly as there), plus :func:`resolve_device`, which
-every entry point of the port uses to pick its device, and
-:func:`full_float32`.
+global ``np.random`` exactly as there; the host DTW of
+:func:`get_dtw_alignment` breaks ties as there), plus
+:func:`resolve_device`, which every entry point of the port uses to pick
+its device, and :func:`full_float32`.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ __all__ = ["read_spkid_file", "read_spk_list", "read_dataset",
            "group_pairs", "read_vad_file", "print_token",
            "normalize_distribution", "cumulative_distribution",
            "sample_searchidx", "Features_Accessor", "read_feats",
-           "resolve_device", "full_float32", "pow2_bucket"]
+           "resolve_device", "full_float32", "pow2_bucket",
+           "cosine_distance", "dtw_numpy_fast", "get_dtw_alignment"]
 
 
 def resolve_device(device=None, cuda: bool = True) -> torch.device:
@@ -211,3 +213,76 @@ def pow2_bucket(n: int, minimum: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+# host DTW of the host loader backend (the JAX package's numpy path; its
+# optional native library is not part of the port)
+
+def cosine_distance(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Angular cosine distance matrix arccos(cos_sim)/pi in [0, 1].
+
+    Zero-norm rows are maximally distant from everything except other
+    zero-norm rows (reference utils.py:40-60)."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    x2 = np.sqrt(np.sum(x ** 2, axis=1))
+    y2 = np.sqrt(np.sum(y ** 2, axis=1))
+    ix = x2 == 0.0
+    iy = y2 == 0.0
+    denom = np.outer(np.where(ix, 1.0, x2), np.where(iy, 1.0, y2))
+    sim = np.clip(np.dot(x, y.T) / denom, -1.0, 1.0)
+    d = np.arccos(sim) / np.pi
+    d[ix, :] = 1.0
+    d[:, iy] = 1.0
+    d[np.ix_(ix, iy)] = 0.0
+    return np.asarray(d, dtype=np.float64)
+
+
+def dtw_numpy_fast(dist: np.ndarray) -> Tuple[float, np.ndarray, np.ndarray]:
+    """DTW over a cost matrix with steps {(1,0),(0,1),(1,1)}, each row of
+    the DP one cumsum + one cumulative minimum (a (min,+) closed form),
+    then the backtrace from the corner with ties going diagonal, then up,
+    then left. Returns (total_cost, path1, path2), paths from (0, 0) to
+    the corner."""
+    n1, n2 = dist.shape
+    D = np.empty((n1, n2), np.float64)
+    D[0] = np.cumsum(dist[0])
+    big = np.inf
+    for i in range(1, n1):
+        prev = D[i - 1]
+        m = np.minimum(prev, np.concatenate(([big], prev[:-1])))
+        c = dist[i]
+        S = np.concatenate(([0.0], np.cumsum(c[1:])))
+        b = m - np.concatenate(([-big], S[:-1]))
+        cm = np.minimum.accumulate(b)
+        x0 = prev[0] + c[0]
+        D[i] = S + np.minimum(cm, x0)
+    i, j = n1 - 1, n2 - 1
+    p1, p2 = [i], [j]
+    while i > 0 or j > 0:
+        if i == 0:
+            j -= 1
+        elif j == 0:
+            i -= 1
+        else:
+            diag, up, left = D[i - 1, j - 1], D[i - 1, j], D[i, j - 1]
+            if diag <= up and diag <= left:
+                i, j = i - 1, j - 1
+            elif up <= left:
+                i -= 1
+            else:
+                j -= 1
+        p1.append(i)
+        p2.append(j)
+    return (float(D[n1 - 1, n2 - 1]),
+            np.array(p1[::-1], dtype=np.int64),
+            np.array(p2[::-1], dtype=np.int64))
+
+
+def get_dtw_alignment(feat1: np.ndarray,
+                      feat2: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host DTW alignment of two token feature matrices (reference
+    utils.py:147-153): the index paths of :func:`dtw_numpy_fast` over
+    their :func:`cosine_distance` matrix."""
+    _, path1, path2 = dtw_numpy_fast(cosine_distance(feat1, feat2))
+    return path1, path2

@@ -65,7 +65,23 @@ Phases, each printing JSON lines:
     gather loss equal to the matrix-mode loss within rtol 1e-4. Both
     training phases print whether the dev loss after epoch 2 is below
     epoch 0's;
-11. eval_path: the trained network embeds the corpus through
+11. loaders_path: the pair-file loaders at the flagship width on the
+    same corpus, each through ``TrainerSiamese.train()`` (the epoch-0
+    eval plus one epoch, a few batches): mixed bank batches
+    (``bank_split=False``) with tcl 0.2 in matrix mode (one path-kernel
+    launch per step) and gather mode (one move-kernel launch per step),
+    split bank batches with tcl 0.2, ``FramesDataLoader`` (one
+    move-kernel launch per chunk of 256 same pairs of its alignment
+    pass), ``TemporalCoherenceDataLoader`` (one per same group of its dev
+    word batches), ``PairsDataLoader`` on the bank backend over a KNN
+    pairs file of the corpus's same-class tokens, the device backend with
+    tcl 0.2 for 2 epochs with prefetch 0 and then 2 (the losses must
+    agree), and one host-backend batch (host DTW) beside its device twin
+    (the same alignment cost within rtol 1e-4). Each path: finite
+    losses, each kernel's launches exactly as predicted (the cost
+    kernel's 0), and one train step on the card equal to the CPU's
+    within rtol 1e-4;
+12. eval_path: the trained network embeds the corpus through
     ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
     inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from
     the embeddings goes through ``distance_matrix(device_out=True)``
@@ -83,17 +99,17 @@ Phases, each printing JSON lines:
     with the card has no h5py, so ``generate()``/``embed()``/
     ``evaluate()``'s file layer is held against the JAX package by the
     CPU tests;
-12. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+13. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
-13. timing: for each of the four kernels ``device_ms`` (the kernel's own
+14. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-14. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
+15. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
     steps (the device loader's batch building included), over one ABX
     tile of 1,024 rows and over one device scoring pass (across):
     device time by group, launches and the busy share.
@@ -706,7 +722,7 @@ def phase_main_path(features, pairs):
     # one eval step on the card against the CPU path (plain DTW), same
     # weights and batch; float32 sums in other orders: rtol 1e-4
     batch = next(loader.batch_iterator(train_mode=False))
-    _, eval_gpu = trainer._ensure_split_bank_steps(batch.bucket)
+    _, eval_gpu = trainer._steps_for(batch)
     v_gpu = float(eval_gpu(*trainer._args_for(batch)))
     cpu_bank = copy.copy(loader.token_bank)
     cpu_bank.bank = cpu_bank.bank.cpu()
@@ -904,6 +920,407 @@ def phase_gather_path(main_trainer, main_loader):
           "bank_gather_losses": bank_losses,
           "matrix_eval_train": modes[True], "gather_eval_train": modes[False]})
     return trainer, loader, launches, costs_launches
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count."""
+    from abnet3_torch.ops import cuda_dtw
+    return {name: getattr(cuda_dtw, name + "_cuda").launches
+            for name in ("dtw_path", "dtw_path_stats", "dtw_moves",
+                         "dtw_costs")}
+
+
+def loader_trainer(loader, name, matrix_loss=None, num_epochs=1,
+                   prefetch=2):
+    """A TrainerSiamese of the flagship network (random weights from seed
+    0, adadelta lr 0.1) over ``loader``, with its steps counted:
+    returns (trainer, counts) with counts {'index': index-batch steps,
+    'frame_pair': frame-pair steps}."""
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.trainer import TrainerSiamese
+    trainer = TrainerSiamese(
+        network=flagship_network(os.path.join(OUT, f"{name}_network")),
+        loss=coscos2(avg=True), dataloader=loader,
+        optimizer_type="adadelta", lr=0.1, num_epochs=num_epochs,
+        patience=30, seed=0, log_dir=os.path.join(OUT, f"{name}_logs"),
+        matrix_loss=matrix_loss, prefetch=prefetch)
+    counts = {"index": 0, "frame_pair": 0}
+    run_step, frame_pair_step = trainer._run_step, trainer._frame_pair_step
+
+    def counted_index(b, do_training):
+        counts["index"] += 1
+        return run_step(b, do_training)
+
+    def counted_frame_pair(b, do_training):
+        counts["frame_pair"] += 1
+        return frame_pair_step(b, do_training)
+    trainer._run_step = counted_index
+    trainer._frame_pair_step = counted_frame_pair
+    return trainer, counts
+
+
+def count_same_groups(loader):
+    """Count the non-empty same-pair groups that ``loader`` aligns on the
+    device (one move-kernel launch each); returns the live counter."""
+    groups = {"same": 0}
+    collect = loader._collect_pair_feats
+
+    def counted(pairs, token_feats, group):
+        out = collect(pairs, token_feats, group)
+        if group == "same" and out:
+            groups["same"] += 1
+        return out
+    loader._collect_pair_feats = counted
+    return groups
+
+
+def run_loader_path(name, trainer, counts, predict, before=None):
+    """Train ``trainer`` (the epoch-0 eval plus its epochs) with every
+    launch count set to 0 first; ``before()`` runs inside the counted
+    window (the frames loader's alignment pass). Fails unless the losses
+    are finite and each kernel's count equals ``predict(counts)``.
+    Returns the path's JSON line (without the card-vs-CPU step)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if before is not None:
+        before()
+    before_s = time.perf_counter() - t0
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    predicted = dict({"dtw_path": 0, "dtw_path_stats": 0, "dtw_moves": 0,
+                      "dtw_costs": 0}, **predict(counts))
+    losses = trainer.train_losses + trainer.dev_losses
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    if launches != predicted:
+        raise AssertionError(f"{name}: launches {launches}, predicted "
+                             f"{predicted} for steps {counts}")
+    steps = counts["index"] + counts["frame_pair"]
+    return {"phase": "loaders_path", "path": name, "steps": dict(counts),
+            "launches": launches, "predicted": predicted,
+            "train_losses": trainer.train_losses,
+            "dev_losses": trainer.dev_losses,
+            "seconds": seconds, "setup_in_window_s": before_s,
+            "host_ms_per_step": (seconds - before_s) / max(steps, 1) * 1e3,
+            "statistics": dict(trainer.dataloader.statistics_training)}
+
+
+def cpu_bank(bank):
+    """A CPU copy of a token bank."""
+    out = copy.copy(bank)
+    out.bank, out.lengths = bank.bank.cpu(), bank.lengths.cpu()
+    return out
+
+
+def card_cpu_step(net, make, args):
+    """One adadelta (lr 0.1) train step of ``make(net, loss, opt,
+    device)``'s train step on the card and on the CPU, from ``net``'s
+    weights, on the same batch ``args`` (card tensors): the two losses
+    (rtol 1e-4 required) and the card step's CUDA-event time over 10
+    further steps."""
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.trainer import build_optimizer
+    out = {}
+    for dev in ("cuda", "cpu"):
+        n = network_copy(net, None if dev == "cuda" else "cpu")
+        opt = build_optimizer("adadelta", n.parameters(), 0.1)
+        step = make(n, coscos2(avg=True), opt, dev)
+        dargs = [a if dev == "cuda" else a.cpu() for a in args]
+        out[dev] = float(step(*dargs))
+        if dev == "cuda":
+            out["step_ms"] = cuda_time_ms(lambda: step(*dargs), reps=10,
+                                          warmup=1)
+    if not math.isclose(out["cuda"], out["cpu"], rel_tol=1e-4):
+        raise AssertionError(f"step: card {out['cuda']} vs CPU "
+                             f"{out['cpu']}")
+    return {"step_card": out["cuda"], "step_cpu": out["cpu"],
+            "step_ms": out["step_ms"]}
+
+
+def write_knn_pairs(tokens, n_pairs=3000):
+    """A KNN pairs file (``f1 f2 b1 e1 b2 e2 dist``: file ids and frame
+    indices) of consecutive same-class tokens of the corpus, and its id
+    -> file name map; returns their paths."""
+    from collections import defaultdict
+    by_class = defaultdict(list)
+    for c, name, first, n in tokens:
+        by_class[c].append((int(name[1:]), first, first + n))
+    lines = []
+    for c in sorted(by_class):
+        toks = by_class[c]
+        for a, b in zip(toks, toks[1:]):
+            lines.append(f"{a[0]} {b[0]} {a[1]} {a[2]} {b[1]} {b[2]} 0.0")
+    knn = os.path.join(OUT, "knn_pairs.txt")
+    with open(knn, "w") as fh:
+        fh.write("\n".join(lines[:n_pairs]) + "\n")
+    ids = os.path.join(OUT, "knn_ids.txt")
+    n_files = 1 + max(int(name[1:]) for _, name, _, _ in tokens)
+    with open(ids, "w") as fh:
+        fh.writelines(f"{i} f{i}\n" for i in range(n_files))
+    return knn, ids
+
+
+def angular_rows(x1, x2):
+    """arccos(cos)/pi of aligned frame rows, float64."""
+    x1, x2 = x1.double(), x2.double()
+    cos = (x1 * x2).sum(1) / (x1.norm(dim=1) * x2.norm(dim=1)).clamp(
+        min=1e-30)
+    return torch.arccos(cos.clamp(-1.0, 1.0)) / math.pi
+
+
+def phase_loaders_path(features, pairs, tokens, main_loader):
+    """The pair-file loaders of the port at the flagship width, each
+    through ``TrainerSiamese.train()`` (the epoch-0 eval plus one epoch)
+    at a small num_max_minibatches: the mixed bank batches with tcl 0.2
+    in matrix and gather mode, the split bank batches with tcl 0.2,
+    FramesDataLoader, TemporalCoherenceDataLoader, PairsDataLoader on the
+    bank backend, the device backend with tcl 0.2 trained 2 epochs with
+    prefetch 0 and 2 (the same losses), and one host-backend batch set
+    beside its device twin. Each path: finite losses, every kernel's
+    launches as the path predicts, one train step on the card equal to
+    the CPU's (rtol 1e-4). Returns {kernel: {path: launches}}."""
+    import random
+
+    from abnet3_torch.dataloader import (FramesDataLoader,
+                                         OriginalDataLoader,
+                                         PairsDataLoader,
+                                         TemporalCoherenceDataLoader)
+    from abnet3_torch.parallel import (make_frame_pair_steps,
+                                       make_frame_train_step,
+                                       make_pair_train_step,
+                                       make_split_pair_train_step)
+    from abnet3_torch.utils import group_pairs
+    t_phase = time.perf_counter()
+    lines = []
+
+    def words_loader(**kw):
+        loader = OriginalDataLoader(None, None, seed=0, **kw)
+        loader.features = features
+        loader.pairs = dict(pairs)
+        if kw.get("align_backend") == "bank":
+            # the flagship loader's bank: the same tokens and pairs
+            loader.token_bank = main_loader.token_bank
+            loader._bank_pairs = main_loader._bank_pairs
+        loader.load_data()
+        return loader
+
+    def first(loader, kind, train_mode=True):
+        return next(b for b in loader.batch_iterator(train_mode=train_mode)
+                    if type(b).__name__ == kind)
+
+    # mixed bank batches with tcl, matrix mode then gather mode
+    mixed = words_loader(batch_size=64, num_max_minibatches=4,
+                         align_backend="bank", bank_split=False, tcl=0.2)
+    bank, fbank = mixed.token_bank, mixed.frame_bank
+    for matrix in (True, False):
+        name = "mixed_matrix" if matrix else "mixed_gather"
+        trainer, counts = loader_trainer(mixed, name, matrix_loss=matrix)
+        kernel = "dtw_path" if matrix else "dtw_moves"
+        line = run_loader_path(name, trainer, counts,
+                               lambda c, k=kernel: {k: c["index"]})
+        b = first(mixed, "BankBatch")
+        line.update(batch_bucket=b.bucket, tcl_pairs=len(b.tcl_y),
+                    **card_cpu_step(
+                        trainer.network,
+                        lambda n, loss, opt, dev, b=b, m=matrix:
+                        make_pair_train_step(
+                            n, loss, opt,
+                            bank if dev == "cuda" else cpu_bank(bank),
+                            max_frames=b.bucket, matrix_loss=m,
+                            frame_bank=fbank if dev == "cuda"
+                            else fbank.cpu(), tcl=0.2)[0],
+                        trainer._args_for(b)))
+        lines.append(line)
+
+    # split bank batches with tcl (matrix mode)
+    split = words_loader(batch_size=64, num_max_minibatches=4,
+                         align_backend="bank", tcl=0.2)
+    trainer, counts = loader_trainer(split, "split_tcl")
+    line = run_loader_path("split_tcl", trainer, counts,
+                           lambda c: {"dtw_path": c["index"]})
+    b = first(split, "SplitBankBatch")
+    sbank = split.frame_bank
+    line.update(batch_bucket=b.bucket, tcl_pairs=len(b.tcl_y),
+                **card_cpu_step(
+                    trainer.network,
+                    lambda n, loss, opt, dev: make_split_pair_train_step(
+                        n, loss, opt,
+                        bank if dev == "cuda" else cpu_bank(bank),
+                        max_frames=b.bucket,
+                        frame_bank=sbank if dev == "cuda" else sbank.cpu(),
+                        tcl=0.2)[0],
+                    trainer._args_for(b)))
+    lines.append(line)
+
+    # FramesDataLoader: every pair aligned once, in chunks of 256 same
+    # pairs (one move-kernel launch each), then frame-index batches
+    frames = FramesDataLoader(None, None, batch_size=1024,
+                              max_batches_per_epoch=8)
+    frames.features = features
+    frames.pairs = dict(pairs)
+    frames._rng = np.random.RandomState(0)
+    chunks = {}
+    for mode in ("train", "dev"):
+        grouped = group_pairs(pairs[mode])
+        n_same = len(frames._collect_pair_feats(
+            grouped, frames.get_token_feats(grouped), "same"))
+        chunks[mode] = -(-n_same // frames.align_chunk)
+    trainer, counts = loader_trainer(frames, "frames")
+    line = run_loader_path(
+        "frames", trainer, counts,
+        lambda c: {"dtw_moves": chunks["train"] + chunks["dev"]},
+        before=frames.load_data)
+    b = first(frames, "FrameBankBatch")
+    (table,) = frames.frame_tables(True)
+    line.update(align_chunks=chunks,
+                frame_pairs={m: len(v) for m, v in
+                             frames.frame_pairs.items()},
+                load_all_frames_s=line["setup_in_window_s"],
+                **card_cpu_step(
+                    trainer.network,
+                    lambda n, loss, opt, dev: make_frame_train_step(
+                        n, loss, opt,
+                        (table if dev == "cuda" else table.cpu(),))[0],
+                    trainer._args_for(b)))
+    lines.append(line)
+
+    # TemporalCoherenceDataLoader: tcl index groups into the frame bank
+    # for training, device-backend word batches for the dev pass
+    tc = TemporalCoherenceDataLoader(None, None, batch_size=2000,
+                                     test_words_batch_size=64,
+                                     num_max_minibatches=4)
+    tc.features = features
+    tc.pairs = dict(pairs)
+    tc._rng = np.random.RandomState(0)
+    groups = count_same_groups(tc)
+    trainer, counts = loader_trainer(tc, "temporal_coherence")
+    line = run_loader_path("temporal_coherence", trainer, counts,
+                           lambda c: {"dtw_moves": groups["same"]})
+    b = first(tc, "FrameBankBatch")
+    (tc_table,) = tc.frame_tables()
+    line.update(same_groups=groups["same"],
+                **card_cpu_step(
+                    trainer.network,
+                    lambda n, loss, opt, dev: make_frame_train_step(
+                        n, loss, opt, (tc_table if dev == "cuda"
+                                       else tc_table.cpu(),))[0],
+                    trainer._args_for(b)))
+    lines.append(line)
+
+    # PairsDataLoader on the bank backend, over a KNN pairs file of the
+    # corpus's same-class token positions
+    knn, ids = write_knn_pairs(tokens)
+    pl = PairsDataLoader(knn, None, ids, batch_size=64, train_iterations=4,
+                         test_iterations=2, align_backend="bank")
+    pl.features = features
+    random.seed(0)
+    pl.load_data()
+    trainer, counts = loader_trainer(pl, "pairs_bank")
+    random.seed(0)
+    line = run_loader_path("pairs_bank", trainer, counts,
+                           lambda c: {"dtw_path": c["index"]})
+    b = first(pl, "BankBatch")
+    pbank = pl.token_bank
+    line.update(knn_pairs={m: len(v) for m, v in pl.pairs.items()},
+                tokens=len(pbank), batch_bucket=b.bucket,
+                **card_cpu_step(
+                    trainer.network,
+                    lambda n, loss, opt, dev: make_pair_train_step(
+                        n, loss, opt,
+                        pbank if dev == "cuda" else cpu_bank(pbank),
+                        align_different_words=True,
+                        max_frames=b.bucket)[0],
+                    trainer._args_for(b)))
+    lines.append(line)
+
+    # the device backend with tcl: 2 epochs with prefetch 0, then 2;
+    # the batches (move kernel, walk, tcl frames) of the second run are
+    # built on the worker thread
+    runs = {}
+    for prefetch in (0, 2):
+        dl = words_loader(batch_size=64, num_max_minibatches=4, tcl=0.2)
+        groups = count_same_groups(dl)
+        trainer, counts = loader_trainer(dl, f"device_tcl_{prefetch}",
+                                         num_epochs=2, prefetch=prefetch)
+        random.seed(0)
+        runs[prefetch] = run_loader_path(
+            "device_tcl", trainer, counts,
+            lambda c: {"dtw_moves": groups["same"]})
+        runs[prefetch]["prefetch"] = prefetch
+    line = runs[2]
+    equal = (runs[0]["train_losses"] == runs[2]["train_losses"]
+             and runs[0]["dev_losses"] == runs[2]["dev_losses"])
+    if not all(math.isclose(a, c, rel_tol=1e-6) for a, c in zip(
+            runs[0]["train_losses"] + runs[0]["dev_losses"],
+            runs[2]["train_losses"] + runs[2]["dev_losses"])):
+        raise AssertionError(f"prefetch 0 {runs[0]} vs 2 {runs[2]}")
+    random.seed(1)
+    b = first(dl, "Batch", train_mode=False)
+    line.update(prefetch_0_seconds=runs[0]["seconds"],
+                prefetch_losses_equal=equal,
+                **card_cpu_step(
+                    trainer.network,
+                    lambda n, loss, opt, dev: make_frame_pair_steps(
+                        n, loss, opt)[0], list(b)))
+    lines.append(line)
+
+    # the host backend's batch (host DTW) beside its device twin: the
+    # same alignment cost (rtol 1e-4)
+    grouped = group_pairs(pairs["dev"][:64])
+    host = OriginalDataLoader(None, None, seed=0, align_backend="host")
+    host.features = features
+    reset_launches()
+    t0 = time.perf_counter()
+    hb = host._host_batch(*host.load_frames_from_pairs(grouped))
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    twin = OriginalDataLoader(None, None, seed=0)
+    twin.features = features
+    t0 = time.perf_counter()
+    db = twin.load_frames_from_pairs_device(grouped)
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    n_same = sum(1 for _ in grouped["same"])
+    if launches != {"dtw_path": 0, "dtw_path_stats": 0,
+                    "dtw_moves": 1 if n_same else 0, "dtw_costs": 0}:
+        raise AssertionError(f"host/device twin launches {launches}")
+    cost_host = float(angular_rows(hb.x1, hb.x2)[hb.y > 0].sum())
+    w_same = db.weights * (db.y > 0)
+    cost_dev = float((angular_rows(db.x1, db.x2) * w_same).sum())
+    if not math.isclose(cost_host, cost_dev, rel_tol=1e-4):
+        raise AssertionError(f"host DTW cost {cost_host} vs device "
+                             f"{cost_dev}")
+    line = {"phase": "loaders_path", "path": "host", "launches": launches,
+            "host_batch_ms": host_ms, "device_batch_ms": device_ms,
+            "rows": int(hb.y.shape[0]),
+            "device_weighted_rows": float(db.weights.sum()),
+            "same_cost_host": cost_host, "same_cost_device": cost_dev,
+            "rows_equal": int(hb.y.shape[0]) == int(db.weights.sum())}
+    line.update(card_cpu_step(
+        trainer.network,
+        lambda n, loss, opt, dev: make_frame_pair_steps(n, loss, opt)[0],
+        list(hb)))
+    lines.append(line)
+
+    for line in lines:
+        emit(line)
+    total = {k: {} for k in ("dtw_path", "dtw_moves", "dtw_costs")}
+    for line in lines:
+        if line["path"] == "device_tcl":
+            # both prefetch runs
+            n = {k: runs[0]["launches"][k] + runs[2]["launches"][k]
+                 for k in total}
+        else:
+            n = line["launches"]
+        for k in total:
+            total[k][line["path"]] = n[k]
+    emit({"phase": "loaders_path", "seconds": time.perf_counter() - t_phase,
+          "launches_by_path": total})
+    return total
 
 
 def eval_inventory(embedded, seed=1, n_classes=512, per_class=8,
@@ -1219,7 +1636,7 @@ def phase_timing(trainer, loader):
     for b in loader.batch_iterator(train_mode=True):
         if batch is None or b.bucket > batch.bucket:
             batch = b
-    step, _ = trainer._ensure_split_bank_steps(batch.bucket)
+    step, _ = trainer._steps_for(batch)
 
     def run():
         return step(*trainer._args_for(batch))
@@ -1462,10 +1879,14 @@ def main():
     trainer, loader, launches, costs_main = phase_main_path(features, pairs)
     g_trainer, g_loader, moves_launches, costs_gather = phase_gather_path(
         trainer, loader)
+    by_path = phase_loaders_path(features, pairs, tokens, loader)
     bank, stats_launches, costs_eval, score_run = phase_eval_path(
         trainer.network, loader.features)
     # no path runs the cost kernel: each path phase reads its count
-    costs_launches = costs_main + costs_gather + costs_eval
+    costs_launches = (costs_main + costs_gather + costs_eval
+                      + sum(by_path["dtw_costs"].values()))
+    path_by_path = {"main_path": launches, **by_path["dtw_path"]}
+    moves_by_path = {"gather_path": moves_launches, **by_path["dtw_moves"]}
     if costs_launches != 0:
         raise AssertionError(f"the cost kernel ran {costs_launches} times "
                              "on the paths, which do not use it")
@@ -1481,18 +1902,20 @@ def main():
     emit({"kernels": [
         kernel_line("dtw_path", "abnet3_torch/csrc/dtw_path.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:227", [32, 96, 96],
-                    launches, max_err, rows[(32, 96)]),
+                    sum(path_by_path.values()), max_err, rows[(32, 96)],
+                    launches_by_path=path_by_path),
         kernel_line("dtw_path_stats", "abnet3_torch/csrc/dtw_path_stats.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:511",
                     [bank.max_len, 1024, bank.max_len], stats_launches,
                     stats_err, stats_row),
         kernel_line("dtw_moves", "abnet3_torch/csrc/dtw_moves.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:190", [32, 128, 128],
-                    moves_launches, moves_err,
-                    fwd_rows[("dtw_moves", 32, 128)]),
+                    sum(moves_by_path.values()), moves_err,
+                    fwd_rows[("dtw_moves", 32, 128)],
+                    launches_by_path=moves_by_path),
         # no path of the port runs the cost kernel (in the JAX package
         # only an availability probe and the tests call it): its count
-        # over the three path runs, 0
+        # over every path run, 0
         kernel_line("dtw_costs", "abnet3_torch/csrc/dtw_moves.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:173", [32, 128, 128],
                     costs_launches, costs_err,

@@ -337,3 +337,114 @@ def test_device_scorer_on_the_card_equals_the_cpu(cuda_device, rows):
                                              device="cpu", **kw))
         kw.pop("chunk")
         _scores_equal(card, abx_error(Dq, labels, speakers, **kw))
+
+
+def _token_feats(n, dim, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {i: torch.randn(int(torch.randint(4, 40, (1,), generator=g)),
+                           dim, generator=g).numpy() for i in range(n)}
+
+
+def _two_nets(device):
+    """A network on the card and a CPU network with its weights."""
+    from abnet3_torch.models.siamese import SiameseNetwork
+    from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+    kw = dict(input_dim=12, num_hidden_layers=1, hidden_dim=32,
+              output_dim=8, p_dropout=0.0, activation_layer="sigmoid",
+              batch_norm=True)
+    card = SiameseNetwork(device=device, **kw)
+    card.ensure_init(0)
+    cpu = SiameseNetwork(device="cpu", **kw)
+    load_jax_numpy(cpu, *to_jax_numpy(card))
+    return card, cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix", [True, False])
+def test_mixed_bank_step_on_the_card_matches_the_cpu(cuda_device, matrix):
+    """The mixed same/diff bank step (``make_pair_train_step``) with a tcl
+    group, on the card against the CPU path: eval and train losses
+    within rtol 1e-4, one launch of the path kernel (matrix mode) or of
+    the move kernel (gather mode) per step."""
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.ops.bank import TokenBank, upload_rows
+    from abnet3_torch.parallel import make_pair_train_step
+    from abnet3_torch.trainer import build_optimizer
+    feats = _token_feats(40, 12, seed=12)
+    g = torch.Generator().manual_seed(13)
+    table = torch.randn(300, 12, generator=g).numpy()
+    B = 16
+    ids = torch.randperm(40, generator=g)[:2 * B]
+    y = torch.where(torch.arange(B) % 2 == 0, 1.0, -1.0)
+    w = torch.ones(B)
+    w[-1] = 0.0
+    a = torch.randint(0, 260, (6,), generator=g)
+    ti1 = a.repeat_interleave(5)
+    ti2 = ti1 + torch.tensor([1, 15, 20, 25, 30]).repeat(6)
+    ty = torch.tensor([1.0, -1.0, -1.0, -1.0, -1.0]).repeat(6)
+    args = (ids[:B], ids[B:], y, w, ti1, ti2, ty, torch.ones(30))
+    out = {}
+    card_net, cpu_net = _two_nets(cuda_device)
+    for dev, net in ((cuda_device, card_net), ("cpu", cpu_net)):
+        opt = build_optimizer("adadelta", net.parameters(), 0.1)
+        step, ev = make_pair_train_step(
+            net, coscos2(), opt, TokenBank(feats, device=dev),
+            max_frames=32, matrix_loss=matrix,
+            frame_bank=upload_rows(table, device=dev), tcl=0.2)
+        dargs = [t.to(dev) for t in args]
+        kernel = (cuda_dtw.dtw_path_cuda if matrix
+                  else cuda_dtw.dtw_moves_cuda)
+        before = kernel.launches
+        out[str(dev)] = (float(ev(*dargs)), float(step(*dargs)))
+        if dev != "cpu":
+            assert kernel.launches == before + 2
+    card, cpu = out[str(cuda_device)], out["cpu"]
+    for x, y_ in zip(card, cpu):
+        assert abs(x - y_) <= 1e-4 * abs(y_)
+
+
+@pytest.mark.cuda
+def test_load_all_frames_on_the_card_matches_the_cpu(cuda_device):
+    """``FramesDataLoader.load_all_frames`` with the move kernel on the
+    card against the plain version on the CPU: the same table and
+    labels, the aligned frames' summed angular distance (the DTW costs)
+    within rtol 1e-4, one launch per chunk of same pairs."""
+    import numpy as np
+
+    from abnet3_torch.dataloader import FramesDataLoader
+    from abnet3_torch.utils import Features_Accessor, cosine_distance
+    g = torch.Generator().manual_seed(14)
+    feats = {f"f{i}": torch.randn(200, 12, generator=g).numpy()
+             for i in range(4)}
+    times = {k: np.arange(200) * 0.01 + 0.0025 for k in feats}
+    rng = np.random.RandomState(15)
+    pairs = []
+    for k in range(40):
+        f1, f2 = rng.randint(4, size=2)
+        s1, s2 = rng.randint(0, 150, size=2) * 0.01
+        n1, n2 = rng.randint(5, 40, size=2) * 0.01
+        pairs.append((f"f{f1}", s1, s1 + n1, f"f{f2}", s2, s2 + n2,
+                      "same" if k % 3 else "diff"))
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        dl = FramesDataLoader(None, None, align_chunk=8, device=dev)
+        dl.features = Features_Accessor(times, feats)
+        dl._rng = np.random.RandomState(0)
+        before = cuda_dtw.dtw_moves_cuda.launches
+        table, frames = dl.load_all_frames(pairs)
+        out[str(dev)] = (table, frames,
+                         cuda_dtw.dtw_moves_cuda.launches - before)
+    (t_card, f_card, n_card), (t_cpu, f_cpu, n_cpu) = (
+        out[str(cuda_device)], out["cpu"])
+    n_same = sum(p[6] == "same" for p in pairs)
+    assert (n_card, n_cpu) == (-(-n_same // 8), 0)
+    np.testing.assert_array_equal(t_card, t_cpu)
+    assert sorted(f_card[:, 2].tolist()) == sorted(f_cpu[:, 2].tolist())
+
+    def cost(table, frames):
+        same = frames[frames[:, 2] > 0]
+        return sum(float(cosine_distance(table[a:a + 1],
+                                         table[b:b + 1])[0, 0])
+                   for a, b, _ in same)
+    c_card, c_cpu = cost(t_card, f_card), cost(t_cpu, f_cpu)
+    assert abs(c_card - c_cpu) <= 1e-4 * c_cpu

@@ -322,6 +322,49 @@ def test_shared_features_train_embed_match_jax(corpus, tmp_path,
     assert at["n_triplets"] == aj["n_triplets"]
 
 
+class _SeededState(np.random.RandomState):
+    """``RandomState()`` without a seed draws from the OS; FramesDataLoader
+    builds its generator so (it takes no seed), and two runs compare only
+    when both draw alike."""
+
+    def __init__(self, seed=None):
+        super().__init__(0 if seed is None else seed)
+
+
+@pytest.mark.parametrize("dataloader", [
+    {"class": "FramesDataLoader",
+     "arguments": {"batch_size": 64, "max_batches_per_epoch": 4,
+                   "steps_per_call": 2}},
+    {"class": "OriginalDataLoader",
+     "arguments": {"batch_size": 16, "num_max_minibatches": 4, "seed": 0,
+                   "align_backend": "bank", "steps_per_call": 2,
+                   "tcl": 0.2}}], ids=["frames", "tcl"])
+def test_loader_yaml_matches_jax(corpus, tmp_path, monkeypatch, dataloader):
+    """A YAML that names FramesDataLoader, and one that mixes tcl pairs
+    into the bank batches, through both orchestrators to ``abx.json`` on
+    one shared feature file: the same pairs, per-epoch losses within rtol
+    1e-3, equal ``n_triplets``."""
+    from abnet3_tpu.features import FeaturesGenerator
+    monkeypatch.setattr(np.random, "RandomState", _SeededState)
+    wavdir, _, _ = corpus
+    feats = str(tmp_path / "shared" / "features")
+    FeaturesGenerator(files=wavdir, output_path=feats, n_filters=8,
+                      normalization=True, norm_per_file=False).generate()
+    cfg = yaml.safe_load(_yaml_text(corpus, run="never", output_path=feats)
+                         .replace("{exp_path}", "EXP"))
+    cfg["default_params"]["dataloader"] = dataloader
+    jexp, texp = _run_both(tmp_path, monkeypatch, yaml.safe_dump(cfg)
+                           .replace("EXP", "{exp_path}"))
+    assert _pairs(texp) == _pairs(jexp)
+    for split in ("train_loss", "dev_loss"):
+        lj, lt = _losses(jexp, split), _losses(texp, split)
+        assert len(lt) == len(lj) == 3
+        np.testing.assert_allclose(lt, lj, rtol=1e-3)
+    aj = json.load(open(os.path.join(jexp, "abx.json")))
+    at = json.load(open(os.path.join(texp, "abx.json")))
+    assert at["n_triplets"] == aj["n_triplets"] > 0
+
+
 def test_cli_runs_the_pipeline_from_wavs(corpus, tmp_path):
     """``python -m abnet3_torch.gridsearch`` on the port's YAML, in a
     process of its own (no jax loaded, the port's own initialisation):
@@ -552,7 +595,7 @@ def test_num_jobs_spawn_pool(experiment, tmp_path):
     ("dataloader", "MultiTaskDataLoader", "A8"),
     ("trainer", "TrainerSiameseMultitask", "A8"),
     ("loss", "weighted_loss_multi", "A8"),
-    ("dataloader", "FramesDataLoader", "A7"),
+    ("dataloader", "OnDeviceSamplerDataLoader", "A7"),
     ("embedder", "MultimodalEmbedder", "A10"),
 ])
 def test_unported_class_raises(experiment, tmp_path, stage, name, item):

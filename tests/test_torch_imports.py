@@ -148,7 +148,41 @@ def test_loader_device_backend_raises_without_card(no_cuda):
                                 {"align_backend": "host"},
                                 {"align_backend": "bank",
                                  "bank_split": False}, {"tcl": 0.1}])
-def test_loader_unported_options_raise(kw):
-    from abnet3_torch.dataloader import OriginalDataLoader
-    with pytest.raises(NotImplementedError):
-        OriginalDataLoader(None, None, **kw)
+def test_loader_unported_options_raise(no_cuda, kw):
+    """The options that once raised NotImplementedError (tcl mixing, the
+    host backend, mixed bank batches) are ported; on their default
+    device they ask for the card, and without one they raise."""
+    dl = _one_pair_loader(**kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dl.load_data()
+        next(dl.batch_iterator())
+
+
+@pytest.mark.parametrize("cls", ["FramesDataLoader",
+                                 "TemporalCoherenceDataLoader",
+                                 "PairsDataLoader"])
+def test_new_loaders_default_device_raises_without_card(no_cuda, tmp_path,
+                                                        cls):
+    """The frame, temporal-coherence and KNN-pairs loaders place their
+    tables and batches on the card by default: without one, their first
+    batch raises instead of running on the CPU."""
+    import abnet3_torch.dataloader as D
+    from abnet3_torch.utils import Features_Accessor
+    rng = np.random.RandomState(0)
+    feats = {"f": rng.randn(60, 2).astype(np.float32)}
+    times = {"f": np.arange(60) * 0.01 + 0.0025}
+    if cls == "PairsDataLoader":
+        knn = tmp_path / "knn.txt"
+        knn.write_text("0 0 0 10 40 52 0.1\n0 0 1 9 20 30 0.2\n")
+        ids = tmp_path / "ids.txt"
+        ids.write_text("0 f\n")
+        dl = D.PairsDataLoader(str(knn), None, str(ids), batch_size=2,
+                               train_iterations=1, test_iterations=1)
+    else:
+        dl = getattr(D, cls)(None, None)
+        tok = ("f", 0.0, 0.1)
+        dl.pairs = {"train": [tok + ("f", 0.2, 0.3, "same")],
+                    "dev": [tok + ("f", 0.3, 0.4, "diff")]}
+    dl.features = Features_Accessor(times, feats)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(dl.batch_iterator())
