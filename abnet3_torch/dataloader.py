@@ -24,7 +24,10 @@ the bank backend as index groups into a device frame table
 ``TemporalCoherenceDataLoader`` (temporal-coherence pairs only, word
 pairs for the dev pass) and ``FramesDataLoader`` (every pair aligned
 once, frame-index batches against a device frame table,
-:class:`FrameBankBatch`) build on it.
+:class:`FrameBankBatch`) build on it. ``OnDeviceSamplerDataLoader``
+reads no pair file: it holds a token bank and the sampler's
+distributions on the device per split, and the trainer's sampled steps
+draw their pairs there.
 
 The loaders draw from ``np.random.RandomState(seed)`` (``self._rng``) and
 from the global ``random`` module exactly as the JAX loaders do, draw for
@@ -53,7 +56,7 @@ from abnet3_torch.utils import (Features_Accessor, get_dtw_alignment,
 __all__ = ["Batch", "BankBatch", "SplitBankBatch", "FrameBankBatch",
            "DataLoader", "OriginalDataLoader", "PairsDataLoader",
            "TemporalCoherenceDataLoader", "FramesDataLoader",
-           "prefetch_iterator"]
+           "OnDeviceSamplerDataLoader", "prefetch_iterator"]
 
 
 class Batch(NamedTuple):
@@ -1164,3 +1167,116 @@ class FramesDataLoader(OriginalDataLoader):
                 continue
             yield self._host_batch(table[chunk[:, 0]], table[chunk[:, 1]],
                                    chunk[:, 2])
+
+
+class OnDeviceSamplerDataLoader(OriginalDataLoader):
+    """The fully on-device data pipeline: no pair files at all
+    (``abnet3_tpu/dataloader.py:1290-1392``).
+
+    ``load_data`` runs the cluster analysis itself
+    (:class:`abnet3_torch.sampler.SamplerClusterSiamese`: the ``.classes``
+    file, the spkid file, the train/dev split of ``split_method``, which
+    draws from the global ``np.random``/``random`` as the JAX loader's
+    does), then holds per split a :class:`~abnet3_torch.ops.bank.TokenBank`
+    of its tokens in descr order and a
+    :class:`~abnet3_torch.ops.sampling.DevicePairSampler` of its
+    P(type, speaker) distributions, both on ``device``. The trainer's
+    sampled steps draw their pairs from them on the card
+    (:func:`abnet3_torch.parallel.make_sampled_train_step`); the host
+    sends a seed per call of ``steps_per_call`` steps. ``pairs_path`` is
+    accepted and ignored (the gridsearch passes one); pair it with
+    ``DummySampler`` in a YAML."""
+
+    def __init__(self, features_path, std_file=None, spkid_file=None,
+                 batch_size=64, num_max_minibatches=1000,
+                 ratio_train_dev=0.7, ratio_same_diff_spk=0.5,
+                 ratio_same_diff_type=0.5, type_sampling_mode="log",
+                 spk_sampling_mode="log", max_size_cluster=10,
+                 max_num_clusters=None, split_method="clusters",
+                 seed=0, pairs_path=None, steps_per_call=8, device=None):
+        super().__init__(pairs_path, features_path,
+                         num_max_minibatches=num_max_minibatches,
+                         seed=seed, batch_size=batch_size,
+                         align_backend="bank", steps_per_call=steps_per_call,
+                         device=device)
+        self.std_file = std_file
+        self.spkid_file = spkid_file
+        self.ratio_train_dev = ratio_train_dev
+        self.ratio_same_diff_spk = ratio_same_diff_spk
+        self.ratio_same_diff_type = ratio_same_diff_type
+        self.type_sampling_mode = str(type_sampling_mode)
+        self.spk_sampling_mode = str(spk_sampling_mode)
+        self.max_size_cluster = max_size_cluster
+        self.max_num_clusters = max_num_clusters
+        self.split_method = split_method
+        self.device_samplers = None  # {'train': ..., 'dev': ...}
+        self._banks = None
+
+    def load_data(self):
+        if self.device_samplers is not None:
+            return
+        from abnet3_torch.ops.bank import TokenBank
+        from abnet3_torch.ops.sampling import DevicePairSampler
+        from abnet3_torch.sampler import SamplerClusterSiamese
+        from abnet3_torch.utils import read_spkid_file
+
+        if self.features is None:
+            print("Loading features")
+            self.features, _, _ = read_feats(self.features_path)
+        sampler = SamplerClusterSiamese(
+            std_file=self.std_file, spkid_file=self.spkid_file,
+            ratio_train_dev=self.ratio_train_dev,
+            max_size_cluster=self.max_size_cluster,
+            split_method=self.split_method, seed=self.seed)
+        spkid = read_spkid_file(self.spkid_file)
+        sampler.spkid_from_file = spkid
+        clusters = sampler.parse_input_file(self.std_file,
+                                            self.max_num_clusters)
+        if self.split_method == "clusters":
+            splits = sampler.split_clusters_ratio(clusters)
+        elif self.split_method == "files":
+            splits = sampler.split_clusters_on_file(clusters)
+        else:
+            splits = sampler.split_each_file(clusters)
+
+        samplers, banks = {}, {}
+        for mode, cs in zip(("train", "dev"), splits):
+            descr = sampler.analyze_clusters(cs, spkid)
+            proba = sampler.type_speaker_sampling_p(
+                descr, type_sampling_mode=self.type_sampling_mode,
+                spk_sampling_mode=self.spk_sampling_mode)
+            token_feats = {}
+            for tid, (fid, t0, t1) in enumerate(descr["tokens"]):
+                f = self.features.get(fid, t0, t1)
+                if len(f) == 0:
+                    f = np.zeros((1, self.features.features[
+                        self.features._key(fid)].shape[1]), np.float32)
+                token_feats[tid] = f
+            banks[mode] = TokenBank(token_feats, device=self.device)
+            samplers[mode] = DevicePairSampler(
+                descr, proba, batch_size=self.batch_size,
+                ratio_same_diff_spk=self.ratio_same_diff_spk,
+                ratio_same_diff_type=self.ratio_same_diff_type,
+                device=self.device)
+        self._banks = banks
+        self.device_samplers = samplers
+
+    def bank_for(self, train_mode=True):
+        self.load_data()
+        return self._banks["train" if train_mode else "dev"]
+
+    def sampler_for(self, train_mode=True):
+        self.load_data()
+        return self.device_samplers["train" if train_mode else "dev"]
+
+    def steps_per_epoch(self, train_mode=True):
+        """Steps of a train pass (``num_max_minibatches``) and of a dev
+        pass (a tenth of it, at least 1)."""
+        return self.num_max_minibatches if train_mode else \
+            max(self.num_max_minibatches // 10, 1)
+
+    def batch_iterator(self, train_mode=True):
+        raise TypeError(
+            "OnDeviceSamplerDataLoader has no host batch iterator: the "
+            "pairs are drawn inside the sampled train step; train it with "
+            "TrainerSiamese, which detects it.")

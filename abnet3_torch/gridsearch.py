@@ -45,7 +45,6 @@ __all__ = ["GridSearch", "main"]
 # classes of the JAX package's stage modules not ported yet, with the
 # ROADMAP.md item that ports them
 _UNPORTED = {
-    "OnDeviceSamplerDataLoader": "A7",
     "SiameseMultitaskNetwork": "A8", "MultiTaskDataLoader": "A8",
     "TrainerSiameseMultitask": "A8", "EmbedderSiameseMultitask": "A8",
     "KLLoss": "A8", "weighted_loss_multi": "A8",

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from abnet3_torch.nn import Tower, TowerSpec
+from abnet3_torch.nn import ForwardReplay, Tower, TowerSpec
 from abnet3_torch.serialize import load_pytree, save_pytree
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
@@ -136,6 +136,12 @@ class SiameseNetwork(NetworkBuilder):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.tower.reset_parameters(generator)
+
+    def replay(self) -> ForwardReplay:
+        """Taken just before a train-mode forward: ``with`` it, a later
+        forward replays that one's dropout masks and leaves the
+        batch-norm buffers alone (:class:`abnet3_torch.nn.ForwardReplay`)."""
+        return ForwardReplay(self.tower, self._generator)
 
     def forward_once(self, x, weights=None):
         """One branch (used by the embedder and the matrix-mode step)."""

@@ -21,7 +21,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-__all__ = ["ACTIVATIONS", "calculate_gain", "Dense", "Tower", "TowerSpec"]
+__all__ = ["ACTIVATIONS", "calculate_gain", "Dense", "Tower", "TowerSpec",
+           "ForwardReplay"]
 
 
 ACTIVATIONS = {
@@ -115,7 +116,9 @@ class Dense(nn.Module):
 
 class Tower(nn.Module):
     """MLP tower; ``forward`` runs in train or eval mode after
-    ``self.training`` (batch statistics and dropout only in training)."""
+    ``self.training`` (batch statistics and dropout only in training).
+    A train-mode forward updates the running batch-norm buffers unless
+    ``update_stats`` is False (see :class:`ForwardReplay`)."""
 
     def __init__(self, spec: TowerSpec, device=None,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5):
@@ -123,6 +126,7 @@ class Tower(nn.Module):
         self.spec = spec
         self.bn_momentum = bn_momentum
         self.bn_eps = bn_eps
+        self.update_stats = True
         self.layers = nn.ModuleList(
             Dense(spec.dims[i], spec.dims[i + 1], spec.batch_norm, device)
             for i in range(spec.num_layers))
@@ -165,10 +169,11 @@ class Tower(nn.Module):
             if spec.batch_norm:
                 if self.training:
                     mean, var, unbiased = self._batch_stats(x, weights)
-                    m = self.bn_momentum
-                    with torch.no_grad():
-                        layer.bn_mean.mul_(1 - m).add_(m * mean)
-                        layer.bn_var.mul_(1 - m).add_(m * unbiased)
+                    if self.update_stats:
+                        m = self.bn_momentum
+                        with torch.no_grad():
+                            layer.bn_mean.mul_(1 - m).add_(m * mean)
+                            layer.bn_var.mul_(1 - m).add_(m * unbiased)
                 else:
                     mean, var = layer.bn_mean, layer.bn_var
                 x = ((x - mean) * torch.rsqrt(var + self.bn_eps)
@@ -190,3 +195,39 @@ class Tower(nn.Module):
         var = x.var(0, unbiased=False)
         n = x.shape[0]
         return mean, var, var * n / max(n - 1, 1)
+
+
+class ForwardReplay:
+    """Re-run a train-mode forward of ``tower`` as it first ran: made just
+    before that forward, it keeps the dropout generator's state. Inside
+    ``with replay:`` the tower draws the first forward's dropout masks
+    again and leaves its batch-norm buffers as the first forward left
+    them; on exit the generator is where the first forward left it. This
+    is what a step's extra loss evaluations need (an LBFGS linesearch
+    evaluates the loss at other parameters, with the step's batch, masks
+    and pre-step buffers, as the JAX package's ``value_fn`` does).
+    ``generator`` None stands for the device's default generator."""
+
+    def __init__(self, tower: Tower, generator: Optional[torch.Generator]):
+        if generator is None:
+            dev = tower.layers[0].w.device
+            generator = (torch.cuda.default_generators[
+                dev.index if dev.index is not None
+                else torch.cuda.current_device()]
+                if dev.type == "cuda" else torch.default_generator)
+        self.tower = tower
+        self.generator = generator
+        self.before = generator.get_state()
+        self.after = None
+
+    def __enter__(self):
+        if self.after is None:
+            self.after = self.generator.get_state()
+        self.generator.set_state(self.before)
+        self.tower.update_stats = False
+        return self
+
+    def __exit__(self, *exc):
+        self.tower.update_stats = True
+        self.generator.set_state(self.after)
+        return False

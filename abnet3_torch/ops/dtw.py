@@ -292,10 +292,6 @@ def dtw_moves_auto(dist: torch.Tensor) -> torch.Tensor:
     return cuda_dtw.dtw_moves_plain(dist)
 
 
-# (di, dj) of each move code: 1 = left, 2 = up, 3 = diag
-_MOVE_STEPS = ((0, 0), (0, 1), (1, 0), (1, 1))
-
-
 def walk_moves(move: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Walk move matrices back from each pair's endpoint (n1-1, n2-1).
@@ -305,18 +301,19 @@ def walk_moves(move: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
     with L = T1+T2-1 in increasing order, padded past path_len by
     repeating the endpoint, as the JAX package's ``walk_moves``. One step
     per loop iteration for all B pairs at once; a coordinate that a move
-    would take below 0 stays at 0, so the walk rests at (0, 0)."""
+    would take below 0 stays at 0, so the walk rests at (0, 0). A move
+    code m steps back (m >> 1, m & 1): 1 = left (0, 1), 2 = up (1, 0),
+    3 = diag (1, 1). Nothing is read back to the host."""
     B, T1, T2 = move.shape
     L = T1 + T2 - 1
     dev = move.device
     flat = move.reshape(B, T1 * T2).long()
-    steps = torch.tensor(_MOVE_STEPS, dtype=torch.long, device=dev)
     ij = torch.stack([n1.to(dev).long() - 1, n2.to(dev).long() - 1])
     trail = torch.empty((L, 2, B), dtype=torch.long, device=dev)
     for s in range(L):
         trail[s] = ij
         m = flat.gather(1, (ij[0] * T2 + ij[1])[:, None])[:, 0]
-        ij = (ij - steps[m].t()).clamp_(min=0)
+        ij = (ij - torch.stack([m >> 1, m & 1])).clamp_(min=0)
     ris, rjs = trail[:, 0].t(), trail[:, 1].t()             # (B, L)
     # the walk goes from the endpoint back to (0, 0), then repeats it
     at_origin = (ris == 0) & (rjs == 0)

@@ -21,7 +21,22 @@ batch-norm buffers in place.
 - :func:`make_frame_train_step`: frame-index batches against a device
   frame table (``FrameBankBatch``);
 - :func:`make_fused_train_step`: raw padded same/diff token batches;
-- :func:`make_frame_pair_steps`: aligned frame pairs (``Batch``).
+- :func:`make_frame_pair_steps`: aligned frame pairs (``Batch``);
+- :func:`make_sampled_train_step` and :func:`make_sampled_eval_step`: the
+  fully on-device pipeline of ``OnDeviceSamplerDataLoader``. A call takes
+  a ``torch.Generator`` and runs ``steps_per_call`` steps, each drawing
+  its mixed pair batch from a :class:`~abnet3_torch.ops.sampling
+  .DevicePairSampler` on the card and aligning it there; it returns the
+  mean loss (train) or the per-step losses (eval) as device tensors,
+  with no host read inside.
+
+Every train step hands its loss and a closure to :func:`_opt_step`: an
+optimizer that takes them (:class:`abnet3_torch.optim.LBFGS`, whose
+linesearch evaluates the loss again at other parameters) gets the
+closure, which replays the step's forward (its batch, its alignment
+masks, its dropout masks and the pre-step batch-norm buffers) at the
+parameters it is given, as the JAX package's ``value_fn`` does; the
+alignment kernels run once a step, never once an evaluation.
 
 In matrix mode (the default where the loss has a cell decomposition) a
 token step:
@@ -44,6 +59,7 @@ matrix mode are the batch-norm weights of the gathered rows).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -54,16 +70,60 @@ from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
 
 __all__ = ["make_split_pair_train_step", "make_pair_train_step",
            "make_frame_train_step", "make_fused_train_step",
-           "make_frame_pair_steps", "use_matrix_loss"]
+           "make_frame_pair_steps", "make_sampled_train_step",
+           "make_sampled_eval_step", "use_matrix_loss"]
 
 
 def use_matrix_loss(loss, override: Optional[bool] = None) -> bool:
-    """Whether a step takes the matrix-loss path: ``override`` when
-    given, else whenever the loss has a cell decomposition; otherwise it
-    takes the gather path."""
+    """Whether a step takes the matrix-loss path, as the JAX package
+    decides: ``override`` when given, then the environment variable
+    ``ABNET3_MATRIX_LOSS`` (``0``/``false``/``no``/``off`` forces the
+    gather path, ``1``/``true``/``yes``/``on`` the matrix path, where a
+    loss without a cell decomposition then fails loudly), else the matrix
+    path whenever the loss has a cell decomposition."""
     if override is not None:
         return bool(override)
+    flag = os.environ.get("ABNET3_MATRIX_LOSS", "").lower()
+    if flag in ("0", "false", "no", "off"):
+        return False
+    if flag in ("1", "true", "yes", "on"):
+        return True
     return getattr(loss, "supports_cells", False)
+
+
+def _opt_step(optimizer, value: torch.Tensor, closure) -> None:
+    """``optimizer.step()`` after a backward of the loss ``value``; an
+    optimizer that takes a closure (``takes_closure``, LBFGS) gets the
+    loss and ``closure``, which re-evaluates the loss and its gradient
+    at the current parameters (the twin of optax's ``value_fn`` in the
+    JAX package's ``opt_update``)."""
+    if getattr(optimizer, "takes_closure", False):
+        optimizer.step(closure, value=value)
+    else:
+        optimizer.step()
+
+
+def _train_on(network, optimizer, evaluate) -> torch.Tensor:
+    """One optimizer step on the loss ``evaluate()`` (a train-mode forward
+    of ``network`` on prepared inputs); returns the loss, detached. For
+    an optimizer that takes a closure the closure replays that forward
+    (:meth:`~abnet3_torch.models.siamese.SiameseNetwork.replay`)."""
+    network.train()
+    optimizer.zero_grad(set_to_none=True)
+    replay = (network.replay()
+              if getattr(optimizer, "takes_closure", False) else None)
+    v = evaluate()
+    v.backward()
+
+    def closure():
+        with replay:
+            optimizer.zero_grad(set_to_none=True)
+            again = evaluate()
+            again.backward()
+        return again.detach()
+
+    _opt_step(optimizer, v.detach(), closure)
+    return v.detach()
 
 
 def _diff_path_mask(p1d, p2d, plen_d, wd, T1: int, T2: int) -> torch.Tensor:
@@ -225,13 +285,10 @@ def make_frame_pair_steps(network, loss, optimizer):
     (``optimizer``) and batch-norm buffers in place."""
 
     def train_step(x1, x2, y, w):
-        network.train()
-        optimizer.zero_grad(set_to_none=True)
-        e1, e2 = network.forward(x1, x2, weights=w)
-        value = loss(e1, e2, y, weights=w)
-        value.backward()
-        optimizer.step()
-        return value.detach()
+        def evaluate():
+            e1, e2 = network.forward(x1, x2, weights=w)
+            return loss(e1, e2, y, weights=w)
+        return _train_on(network, optimizer, evaluate)
 
     @torch.no_grad()
     def eval_step(x1, x2, y, w):
@@ -267,12 +324,7 @@ def _matrix_steps(network, optimizer, prepare, value):
 
     def train_step(*args):
         parts = prepare(*args)
-        network.train()
-        optimizer.zero_grad(set_to_none=True)
-        v = value(parts)
-        v.backward()
-        optimizer.step()
-        return v.detach()
+        return _train_on(network, optimizer, lambda: value(parts))
 
     @torch.no_grad()
     def eval_step(*args):
@@ -527,3 +579,92 @@ def make_fused_train_step(network, loss, optimizer,
         return loss.from_cells(c, y, weights=w)
 
     return _matrix_steps(network, optimizer, parts, value)[0]
+
+
+def _sampled_prepare(bank, sampled, align_different_words: bool,
+                     matrix: bool):
+    """The half of a sampled step that does not depend on the parameters
+    (run under ``torch.no_grad()``): the mixed pairs ``sampled`` = (ids1,
+    ids2, y, ...) of a :meth:`DevicePairSampler.sample` draw, each of
+    weight 1, aligned at the bank's full length: in matrix mode their
+    path masks (``dtw_path``), in gather mode their frame pairs
+    (``dtw_moves`` and the walk). Returns (mode, parts)."""
+    ids1, ids2, y = sampled[:3]
+    w = torch.ones_like(y)
+    if matrix:
+        return "matrix", _bank_align_matrix(bank, ids1, ids2, y, w,
+                                            align_different_words,
+                                            bank.max_len)
+    return "gather", _bank_align(bank, ids1, ids2, y, w,
+                                 align_different_words, bank.max_len)
+
+
+def _sampled_apply(network, loss, prep) -> torch.Tensor:
+    """The loss of a prepared sampled batch (the parameter-dependent half
+    of the sampled step), in the network's current mode."""
+    mode, parts = prep
+    if mode == "matrix":
+        frames, w_frames, A, y_cells = parts
+        B, T1, T2 = A.shape
+        e = network.forward_once(frames, weights=w_frames)
+        return loss.from_cells(_head_cells(loss, e, B, T1, T2), y_cells,
+                               weights=A)
+    x1, x2, y, w = parts
+    e1, e2 = network.forward(x1, x2, weights=w)
+    return loss(e1, e2, y, weights=w)
+
+
+def make_sampled_train_step(network, loss, optimizer, bank, sampler,
+                            align_different_words: bool = False,
+                            steps_per_call: int = 1,
+                            matrix_loss: Optional[bool] = None):
+    """The fully on-device train call: ``train_call(generator)`` runs
+    ``steps_per_call`` steps, each drawing a fresh pair batch from
+    ``sampler`` with ``generator`` (on the card), gathering its tokens
+    from ``bank``, aligning them and updating the network in place, and
+    returns the mean loss as a 0-d device tensor. Nothing is read back
+    to the host inside a call (for optimizers other than LBFGS, whose
+    linesearch reads its scalars)."""
+    if steps_per_call < 1:
+        raise ValueError("steps_per_call must be >= 1")
+    matrix = use_matrix_loss(loss, matrix_loss)
+
+    @torch.no_grad()
+    def prepare(generator):
+        return _sampled_prepare(bank, sampler.sample(generator),
+                                align_different_words, matrix)
+
+    def train_call(generator: torch.Generator) -> torch.Tensor:
+        values = []
+        for _ in range(steps_per_call):
+            prep = prepare(generator)
+            values.append(_train_on(
+                network, optimizer,
+                lambda: _sampled_apply(network, loss, prep)))
+        return torch.stack(values).mean()
+
+    return train_call
+
+
+def make_sampled_eval_step(network, loss, bank, sampler,
+                           align_different_words: bool = False,
+                           matrix_loss: Optional[bool] = None,
+                           steps_per_call: int = 1):
+    """Eval twin of :func:`make_sampled_train_step`: ``eval_call(
+    generator)`` samples, aligns and evaluates ``steps_per_call`` fresh
+    batches and returns their (steps_per_call,) losses as a device
+    tensor."""
+    if steps_per_call < 1:
+        raise ValueError("steps_per_call must be >= 1")
+    matrix = use_matrix_loss(loss, matrix_loss)
+
+    @torch.no_grad()
+    def eval_call(generator: torch.Generator) -> torch.Tensor:
+        network.eval()
+        return torch.stack([
+            _sampled_apply(network, loss, _sampled_prepare(
+                bank, sampler.sample(generator), align_different_words,
+                matrix))
+            for _ in range(steps_per_call)])
+
+    return eval_call

@@ -3,10 +3,14 @@
 The counterpart of ``abnet3_tpu/trainer.py`` for ``TrainerSiamese`` on the
 batches of the pair-file loaders of :mod:`abnet3_torch.dataloader`: split
 and mixed bank batches, frame-table index batches and aligned frame-pair
-batches (device and host backends). It runs an epoch-0 eval pass,
-dev-loss early stopping with patience, best-network ``.pth`` + pickled
-``.params`` outputs, a resumable checkpoint and JSONL loss logs; with
-``prefetch`` a worker thread builds the batches ahead.
+batches (device and host backends), and on ``OnDeviceSamplerDataLoader``,
+whose pairs the sampled steps draw on the card. It runs an epoch-0 eval
+pass, dev-loss early stopping with patience, best-network ``.pth`` +
+pickled ``.params`` outputs, a resumable checkpoint and the loss logs
+(TensorBoard scalars where ``tensorboardX`` imports, JSON lines always);
+with ``prefetch`` a worker thread builds the batches ahead. The six
+optimizer types of the reference build with optax's semantics
+(:func:`build_optimizer`).
 
 The JAX trainer buffers index batches per (kind, length bucket, mode) and
 dispatches them ``steps_per_call`` at a time; this trainer keeps that
@@ -22,7 +26,6 @@ batch norm, and this trainer, which compiles nothing, leaves it out.
 
 from __future__ import annotations
 
-import json
 import os
 import pickle
 import time
@@ -44,12 +47,12 @@ __all__ = ["TrainerBuilder", "TrainerSiamese", "build_optimizer",
 
 def build_optimizer(optimizer_type: str, params, lr: float,
                     momentum: float = 0.9) -> torch.optim.Optimizer:
-    """The reference's optimizer zoo (reference trainer.py:68-87) for the
-    types whose torch semantics equal optax's: ``sgd`` (momentum),
-    ``adadelta`` and ``adam``. ``adagrad`` and ``RMSprop`` start their
-    accumulators and place eps differently in torch and optax, and
-    ``LBFGS`` runs a zoom linesearch in the JAX package; they raise until
-    they are ported with optax's semantics."""
+    """The reference's optimizer zoo (reference trainer.py:68-87) with the
+    JAX package's optax semantics: ``sgd`` (momentum), ``adadelta`` and
+    ``adam`` are torch's own, which compute optax's updates; ``adagrad``,
+    ``RMSprop`` and ``LBFGS`` (zoom linesearch, finite-step guard) are
+    written out in :mod:`abnet3_torch.optim`."""
+    from abnet3_torch import optim
     params = list(params)
     if optimizer_type == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=momentum)
@@ -57,18 +60,31 @@ def build_optimizer(optimizer_type: str, params, lr: float,
         return torch.optim.Adadelta(params, lr=lr)
     if optimizer_type == "adam":
         return torch.optim.Adam(params, lr=lr)
-    if optimizer_type in ("adagrad", "RMSprop", "LBFGS"):
-        raise NotImplementedError(
-            f"optimizer_type={optimizer_type!r} is not ported yet: it needs "
-            "optax's semantics written out")
+    if optimizer_type == "adagrad":
+        return optim.Adagrad(params, lr)
+    if optimizer_type == "RMSprop":
+        return optim.RMSprop(params, lr)
+    if optimizer_type == "LBFGS":
+        return optim.LBFGS(params, lr)
     raise ValueError(f"unknown optimizer_type {optimizer_type!r}")
 
 
 # optax's state of each optimizer build_optimizer makes, as a checkpoint
 # stores it (see _layout): named tuples as lists, `tree` params-shaped
-_OPTAX_LAYOUTS = {"sgd": "[[tree], []]",
-                  "adadelta": "[[], [tree, tree], []]",
-                  "adam": "[[array(), tree, tree], []]"}
+_OPTAX_LAYOUTS = {
+    "sgd": "[[tree], []]",
+    "adadelta": "[[], [tree, tree], []]",
+    "adam": "[[array(), tree, tree], []]",
+    "adagrad": "[[tree], []]",
+    "RMSprop": "[[tree], [], []]",
+    # (ScaleByLBFGSState, EmptyState, ScaleByZoomLinesearchState with its
+    # ZoomLinesearchInfo), the LBFGS history of memory size 10
+    "LBFGS": ("[[array(), tree, tree, tree, tree, array(10,)], [], "
+              "[array(), array(), tree, [array(), array(), array()]]]"),
+}
+# the per-parameter slots of optax's LBFGS state, in its order
+_LBFGS_SLOTS = ("params", "updates", "diff_params_memory",
+                "diff_updates_memory")
 
 
 def _layout(node) -> str:
@@ -81,19 +97,42 @@ def _layout(node) -> str:
     return f"array{tuple(np.shape(node))}"
 
 
+def _saved_slot(tree, layer, key, name, shape) -> np.ndarray:
+    """One parameter's array of a saved params-shaped tree, checked
+    against ``shape``."""
+    v = np.array(tree[layer][key], np.float32)
+    if v.shape != tuple(shape):
+        raise ValueError(f"optimizer state {name} of {layer}/{key}: shape "
+                         f"{v.shape}, the network's {tuple(shape)}")
+    return v
+
+
 class MetricsWriter:
-    """Scalar loss log as JSON lines, ``<log_dir>/metrics.jsonl``."""
+    """Scalar loss log: TensorBoard scalars through ``tensorboardX`` where
+    it imports (reference trainer.py:132-152) and always JSON lines,
+    ``<log_dir>/metrics.jsonl``, in the JAX package's format."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
+        self._tb = None
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            pass
+        else:
+            self._tb = SummaryWriter(log_dir=str(log_dir))
         self._jsonl = open(os.path.join(str(log_dir), "metrics.jsonl"), "a")
 
     def add_scalar(self, tag: str, value: float, step: int):
-        self._jsonl.write(json.dumps({"tag": tag, "value": float(value),
-                                      "step": int(step)}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
+        self._jsonl.write('{"tag": "%s", "value": %r, "step": %d}\n'
+                          % (tag, float(value), step))
         self._jsonl.flush()
 
     def close(self):
+        if self._tb is not None:
+            self._tb.close()
         self._jsonl.close()
 
 
@@ -218,13 +257,31 @@ class TrainerBuilder:
         ScaleByAdaDeltaState(e_g, e_x), EmptyState())`` from
         ``square_avg``, ``acc_delta``; adam ``(ScaleByAdamState(count, mu,
         nu), EmptyState())`` from the shared ``step``, ``exp_avg``,
-        ``exp_avg_sq``. Named tuples are lists here, as on disk."""
+        ``exp_avg_sq``; adagrad and RMSprop from their own slots (see
+        :mod:`abnet3_torch.optim`); LBFGS ``(ScaleByLBFGSState,
+        EmptyState(), ScaleByZoomLinesearchState)`` from its slots and
+        scalars. Named tuples are lists here, as on disk."""
         kind = self.optimizer_type
+        opt = self.optimizer
         if kind == "sgd":
             return [[self._slot_tree("momentum_buffer")], []]
         if kind == "adadelta":
             return [[], [self._slot_tree("square_avg"),
                          self._slot_tree("acc_delta")], []]
+        if kind == "adagrad":
+            return [[self._slot_tree("sum_of_squares")], []]
+        if kind == "RMSprop":
+            return [[self._slot_tree("nu")], [], []]
+        if kind == "LBFGS":
+            f32 = np.float32
+            return [[np.asarray(opt.count, np.int32)]
+                    + [self._slot_tree(n) for n in _LBFGS_SLOTS]
+                    + [opt.weights_memory.cpu().numpy().astype(f32)], [],
+                    [np.asarray(opt.learning_rate, f32),
+                     np.asarray(opt.value, f32), self._slot_tree("grad"),
+                     [np.asarray(opt.num_linesearch_steps, np.int32),
+                      np.asarray(opt.decrease_error, f32),
+                      np.asarray(opt.curvature_error, f32)]]]
         return [[np.asarray(int(self._torch_steps()), np.int32),
                  self._slot_tree("exp_avg"), self._slot_tree("exp_avg_sq")],
                 []]
@@ -265,11 +322,18 @@ class TrainerBuilder:
                 f"which this trainer reads and writes, has {want}"
                 " (or torch's state_dict by parameter index)")
         kind = self.optimizer_type
+        if kind == "LBFGS":
+            self._load_lbfgs_state(saved)
+            return
         if kind == "sgd":
             slots, steps = {"momentum_buffer": saved[0][0]}, None
         elif kind == "adadelta":
             slots = {"square_avg": saved[1][0], "acc_delta": saved[1][1]}
             steps = float(meta.get("torch_steps", 0.0))
+        elif kind == "adagrad":
+            slots, steps = {"sum_of_squares": saved[0][0]}, None
+        elif kind == "RMSprop":
+            slots, steps = {"nu": saved[0][0]}, None
         else:
             slots = {"exp_avg": saved[0][1], "exp_avg_sq": saved[0][2]}
             steps = float(saved[0][0])
@@ -279,13 +343,29 @@ class TrainerBuilder:
             if steps is not None:
                 st["step"] = torch.tensor(steps, dtype=torch.float32)
             for name, tree in slots.items():
-                v = np.asarray(tree[layer][key], np.float32)
-                if v.shape != tuple(p.shape):
-                    raise ValueError(
-                        f"optimizer state {name} of {layer}/{key}: shape "
-                        f"{v.shape}, the network's {tuple(p.shape)}")
-                st[name] = torch.from_numpy(v.copy()).to(p.device)
+                st[name] = torch.from_numpy(
+                    _saved_slot(tree, layer, key, name, p.shape)
+                ).to(p.device)
             self.optimizer.state[p] = st
+
+    def _load_lbfgs_state(self, saved):
+        """Fill the LBFGS optimizer's slots (in place: they are views of
+        its flat buffers) and scalars from optax's state."""
+        opt = self.optimizer
+        lbfgs, _, (lr, value, grad, info) = saved
+        slots = dict(zip(_LBFGS_SLOTS, lbfgs[1:5]), grad=grad)
+        for layer, key, p in jax_param_slots(self.network):
+            for name, tree in slots.items():
+                dst = opt.state[p][name]
+                dst.copy_(torch.from_numpy(_saved_slot(
+                    tree, layer, key, name, dst.shape)))
+        opt.weights_memory.copy_(torch.from_numpy(
+            np.asarray(lbfgs[5], np.float32)))
+        c = opt._np
+        opt.count = int(lbfgs[0])
+        opt.learning_rate, opt.value = c(lr), c(value)
+        opt.num_linesearch_steps = int(info[0])
+        opt.decrease_error, opt.curvature_error = c(info[1]), c(info[2])
 
     def load_checkpoint(self) -> int:
         """Restore the full training state; returns the next epoch."""
@@ -363,6 +443,25 @@ class TrainerBuilder:
         print("Saving best checkpoint network")
         train_writer.close()
         dev_writer.close()
+
+    def plot_train_erros(self):
+        """Train/dev loss curves to ``<output_path>_plot.pdf`` (reference
+        trainer.py:175-184; ``matplotlib`` is imported here only)."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig = plt.figure()
+        x = range(len(self.train_losses))
+        plt.plot(x, self.train_losses, "r-")
+        plt.plot(x, self.dev_losses, "b+")
+        fig.savefig(self.network.output_path + "_plot.pdf",
+                    bbox_inches="tight")
+        plt.close(fig)
+
+    def plot_summary_statistics(self):
+        print(" ***** Statistics for the training step ***** ")
+        for key, stats in self.statistics_training.items():
+            print(" Number of {} pairs seen: {} \t\t".format(key, stats))
 
     def pretty_print_losses(self, train_loss, dev_loss):
         print("  training loss:\t\t{:.6f}".format(train_loss))
@@ -525,10 +624,77 @@ class TrainerSiamese(TrainerBuilder):
         losses += self._flush_buffers(do_training)
         return losses
 
+    # -- the fully on-device sampling path ----------------------------------
+
+    def _sampled_steps(self, train_mode: bool):
+        """(train_call, eval_call) of the sampled steps over the split's
+        bank and sampler, made once per split."""
+        key = ("sampled", train_mode)
+        if key not in self._step_fns:
+            from abnet3_torch.parallel import (make_sampled_eval_step,
+                                               make_sampled_train_step)
+            dl = self.dataloader
+            bank, sampler = dl.bank_for(train_mode), dl.sampler_for(train_mode)
+            k = self._bank_steps_per_call
+            self._step_fns[key] = (
+                make_sampled_train_step(self.network, self.loss,
+                                        self.optimizer, bank, sampler,
+                                        steps_per_call=k,
+                                        matrix_loss=self.matrix_loss),
+                make_sampled_eval_step(self.network, self.loss, bank,
+                                       sampler, matrix_loss=self.matrix_loss,
+                                       steps_per_call=k))
+        return self._step_fns[key]
+
+    def _optimize_model_sampled(self, do_training):
+        """A pass pair driven by seeds alone (``OnDeviceSamplerDataLoader``):
+        sampling, alignment and training all run in the sampled calls.
+        The train pass runs ``max(round(n / K), 1)`` calls of K =
+        ``steps_per_call`` steps, n = ``steps_per_epoch(True)``, the dev
+        pass ``max(round(steps_per_epoch(False) / K), 1)`` eval calls, as
+        the JAX trainer does; call i of the epoch's train pass draws with
+        seed ``call_seed(seed, epoch, i)``, dev call i with ``call_seed(
+        seed, epoch, 10_000 + i)``. With ``do_training=False`` the train
+        pass evaluates with the train split's eval call. Losses are
+        per-batch means; each call's losses reduce to one number on the
+        device, read once a pass pair."""
+        from abnet3_torch.ops.sampling import call_seed
+        dl = self.dataloader
+        epoch = len(self.train_losses)
+        train_call, train_eval = self._sampled_steps(True)
+        _, dev_eval = self._sampled_steps(False)
+        k = self._bank_steps_per_call
+        n_steps = dl.steps_per_epoch(True)
+        n_calls = max(round(n_steps / k), 1)
+        if n_calls * k != n_steps and not getattr(self, "_warned_steps",
+                                                  False):
+            print(f"steps_per_call={k} does not divide "
+                  f"num_max_minibatches={n_steps}; running "
+                  f"{n_calls * k} steps per epoch")
+            self._warned_steps = True
+        gen = torch.Generator(device=self.device)
+        train = []
+        for i in range(n_calls):
+            gen.manual_seed(call_seed(self.seed, epoch, i))
+            train.append(train_call(gen) if do_training
+                         else train_eval(gen).mean())
+        dev = []
+        for i in range(max(round(dl.steps_per_epoch(False) / k), 1)):
+            gen.manual_seed(call_seed(self.seed, epoch, 10_000 + i))
+            dev.append(dev_eval(gen).mean())
+        means = torch.stack([torch.stack(train).double().mean(),
+                             torch.stack(dev).double().mean()]).tolist()
+        self.train_losses.append(means[0])
+        self.dev_losses.append(means[1])
+        self.pretty_print_losses(self.train_losses[-1], self.dev_losses[-1])
+        return self.dev_losses[-1]
+
     def optimize_model(self, do_training=True):
         """One train pass + one dev pass (reference trainer.py:226-256);
         returns the per-batch mean dev loss."""
         self.network.ensure_init(self.seed)
+        if hasattr(self.dataloader, "sampler_for"):
+            return self._optimize_model_sampled(do_training)
         self._bufs = {True: {}, False: {}}
         train = self._pass(True, do_training)
         dev = self._pass(False, False)

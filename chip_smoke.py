@@ -81,7 +81,29 @@ Phases, each printing JSON lines:
     losses, each kernel's launches exactly as predicted (the cost
     kernel's 0), and one train step on the card equal to the CPU's
     within rtol 1e-4;
-12. eval_path: the trained network embeds the corpus through
+12. sampled_path: ``OnDeviceSamplerDataLoader`` over the corpus's
+    ``.classes`` and spkid files (the flagship's sampler arguments,
+    batch 64, ``steps_per_call`` 8, ``num_max_minibatches`` 16): every
+    pair drawn on the card inside the sampled calls, the flagship network
+    trained 2 epochs in matrix mode and 1 in gather mode through
+    ``TrainerSiamese.train()``. Finite losses; ``dtw_path`` (matrix) or
+    ``dtw_moves`` (gather) launched exactly once per sampled step the
+    trainer ran, train and eval, nothing else; one train call of 8 steps
+    and one eval call in each mode under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
+    call); one step on the card equal to the CPU's on the same ids and
+    weights (rtol 1e-4); 200 batches drawn on the card pass the
+    chi-square test per configuration, and one seed draws one batch. It
+    prints ms a step by events within a call of 8 and host ms a step;
+13. optimizers: ``adagrad``, ``RMSprop`` and ``LBFGS`` with optax's
+    semantics (``abnet3_torch/optim.py``), 3 steps each of the flagship
+    split bank matrix step at full width: finite losses, the first step's
+    loss equal to the CPU's (rtol 1e-4) and the parameters after it
+    within atol 1e-5, one ``dtw_path`` launch per step (none per LBFGS
+    linesearch evaluation), a ``.ckpt`` that reloads into an equal
+    optimizer state; host ms a step and LBFGS's linesearch evaluations a
+    step;
+14. eval_path: the trained network embeds the corpus through
     ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
     inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from
     the embeddings goes through ``distance_matrix(device_out=True)``
@@ -99,20 +121,21 @@ Phases, each printing JSON lines:
     with the card has no h5py, so ``generate()``/``embed()``/
     ``evaluate()``'s file layer is held against the JAX package by the
     CPU tests;
-13. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+15. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
-14. timing: for each of the four kernels ``device_ms`` (the kernel's own
+16. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-15. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
-    steps (the device loader's batch building included), over one ABX
-    tile of 1,024 rows and over one device scoring pass (across):
-    device time by group, launches and the busy share.
+17. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
+    steps (the device loader's batch building included), over one
+    sampled train call of 8 steps, over one ABX tile of 1,024 rows and
+    over one device scoring pass (across): device time by group,
+    launches and the busy share.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line the ``ok`` object. Any failure raises
@@ -1323,6 +1346,317 @@ def phase_loaders_path(features, pairs, tokens, main_loader):
     return total
 
 
+class GivenDraw:
+    """A stand-in pair sampler that hands out one fixed draw (the card vs
+    CPU step runs the same ids on both)."""
+
+    def __init__(self, draw):
+        self.draw = draw
+
+    def sample(self, generator, with_speakers=False):
+        return self.draw
+
+
+def sampled_trainer(loader, name, matrix_loss=None, num_epochs=2):
+    """A TrainerSiamese of the flagship network (random weights from seed
+    0, coscos2, adadelta lr 0.1) over the on-device sampler ``loader``,
+    with its sampled calls counted: returns (trainer, counts, make) with
+    counts {'train_calls', 'eval_calls'} and ``make`` the trainer's own
+    (uncounted) step maker."""
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.trainer import TrainerSiamese
+    trainer = TrainerSiamese(
+        network=flagship_network(os.path.join(OUT, f"{name}_network")),
+        loss=coscos2(avg=True), dataloader=loader,
+        optimizer_type="adadelta", lr=0.1, num_epochs=num_epochs,
+        patience=30, seed=0, log_dir=os.path.join(OUT, f"{name}_logs"),
+        matrix_loss=matrix_loss)
+    counts = {"train_calls": 0, "eval_calls": 0}
+    make = trainer._sampled_steps
+
+    def counted(train_mode):
+        train_call, eval_call = make(train_mode)
+
+        def t(gen):
+            counts["train_calls"] += 1
+            return train_call(gen)
+
+        def e(gen):
+            counts["eval_calls"] += 1
+            return eval_call(gen)
+        return t, e
+    trainer._sampled_steps = counted
+    return trainer, counts, make
+
+
+def run_sampled(trainer, counts, kernel):
+    """Train ``trainer`` with every launch count set to 0 first; fails
+    unless the losses are finite and ``kernel`` (the path or the move
+    kernel) ran once a sampled step, train and eval, and no other kernel
+    ran. Returns (launches, steps, seconds)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    K = trainer.dataloader.steps_per_call
+    steps = K * (counts["train_calls"] + counts["eval_calls"])
+    predicted = dict({"dtw_path": 0, "dtw_path_stats": 0, "dtw_moves": 0,
+                      "dtw_costs": 0}, **{kernel: steps})
+    losses = trainer.train_losses + trainer.dev_losses
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"sampled path: non-finite losses {losses}")
+    if launches != predicted or steps == 0:
+        raise AssertionError(f"sampled path: launches {launches}, "
+                             f"predicted {predicted} for {counts}")
+    return launches, steps, seconds
+
+
+def sync_free_calls(train_call, eval_call, gen, seed):
+    """One train call and one eval call under
+    ``torch.cuda.set_sync_debug_mode('error')``: any host sync inside
+    raises. Returns their losses."""
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v = train_call(gen)
+        ev = eval_call(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [float(v), ev.tolist()]
+
+
+def phase_sampled_path(features, classes, spk):
+    """``OnDeviceSamplerDataLoader`` at the flagship width through
+    ``TrainerSiamese.train()``: 2 epochs in matrix mode, 1 in gather mode,
+    every pair drawn on the card. Checks: finite losses; one path-kernel
+    (matrix) or move-kernel (gather) launch per sampled step, train and
+    eval, nothing else; one train call of 8 steps and one eval call with
+    no host sync (``torch.cuda.set_sync_debug_mode('error')``, both
+    modes); one step on the card equal to the CPU's on the same ids and
+    weights (rtol 1e-4); 200 batches drawn on the card pass the
+    chi-square test per configuration; one seed, one draw. Returns
+    {kernel: launches} of the two runs."""
+    import random
+
+    from abnet3_torch.dataloader import OnDeviceSamplerDataLoader
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.ops.sampling import chi_square_by_config
+    from abnet3_torch.parallel import make_sampled_train_step
+    from abnet3_torch.trainer import build_optimizer
+    t_phase = time.perf_counter()
+    loader = OnDeviceSamplerDataLoader(
+        None, std_file=classes, spkid_file=spk, batch_size=64,
+        num_max_minibatches=16, max_size_cluster=20,
+        ratio_same_diff_spk=0.5, ratio_same_diff_type=0.5,
+        type_sampling_mode="log", spk_sampling_mode="log", seed=0,
+        steps_per_call=8)
+    loader.features = features
+    # the train/dev split draws from the global generators
+    np.random.seed(0)
+    random.seed(0)
+    t0 = time.perf_counter()
+    loader.load_data()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bank, sampler = loader.bank_for(True), loader.sampler_for(True)
+
+    trainer, counts, make = sampled_trainer(loader, "sampled")
+    launches, steps, seconds = run_sampled(trainer, counts, "dtw_path")
+    line = {"phase": "sampled_path", "mode": "matrix",
+            "tokens": {m: len(loader.bank_for(m == "train"))
+                       for m in ("train", "dev")},
+            "bank_shape": list(bank.bank.shape),
+            "configs": [(c["name"], c["n"], int(c["cdf"].shape[0]))
+                        for c in sampler.configs],
+            "load_data_s": load_s, "calls": dict(counts), "steps": steps,
+            "launches": launches, "train_losses": trainer.train_losses,
+            "dev_losses": trainer.dev_losses, "seconds": seconds,
+            "host_ms_per_step": seconds / steps * 1e3}
+
+    # no host sync inside a call of 8 steps, train then eval
+    train_call, eval_call = make(True)
+    gen = torch.Generator(device="cuda")
+    sync_free = sync_free_calls(train_call, eval_call, gen, 12345)
+    # CUDA events over calls of 8 steps, then one profiled call
+    gen.manual_seed(777)
+    call_ms = cuda_time_ms(lambda: train_call(gen), reps=5, warmup=1)
+    line.update(ms_per_step_events=call_ms / 8, call_ms_events=call_ms)
+
+    # one step on the card and on the CPU: the same ids, the same weights
+    draw = sampler.sample(torch.Generator(device="cuda").manual_seed(9))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        net = network_copy(trainer.network, None if dev == "cuda" else "cpu")
+        opt = build_optimizer("adadelta", net.parameters(), 0.1)
+        step = make_sampled_train_step(
+            net, coscos2(avg=True), opt,
+            bank if dev == "cuda" else cpu_bank(bank),
+            GivenDraw(tuple(t.to(dev) for t in draw)))
+        out[dev] = float(step(None))
+    if not math.isclose(out["cuda"], out["cpu"], rel_tol=1e-4):
+        raise AssertionError(f"sampled step: card {out['cuda']} vs CPU "
+                             f"{out['cpu']}")
+    line.update(step_card=out["cuda"], step_cpu=out["cpu"])
+
+    # the draws: 200 batches on the card against the distributions, and
+    # one seed giving one draw
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    batches = [sampler.sample(gen) for _ in range(200)]
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) / 200 * 1e3
+    chi = chi_square_by_config(sampler, batches)
+    if not all(r["p"] > 1e-3 for r in chi):
+        raise AssertionError(f"card draws fail the chi-square test: {chi}")
+    a, b = (sampler.sample(torch.Generator(device="cuda").manual_seed(5))
+            for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("one seed drew two batches")
+    line.update(chi_square=chi, host_ms_per_draw=draw_ms,
+                sync_free_call=sync_free)
+    emit(line)
+
+    # gather mode, 1 epoch, then its sync-free call
+    g_trainer, g_counts, g_make = sampled_trainer(
+        loader, "sampled_gather", matrix_loss=False, num_epochs=1)
+    g_launches, g_steps, g_seconds = run_sampled(g_trainer, g_counts,
+                                                 "dtw_moves")
+    g_train, g_eval = g_make(True)
+    g_sync_free = sync_free_calls(g_train, g_eval, gen, 54321)
+    gen.manual_seed(778)
+    g_call_ms = cuda_time_ms(lambda: g_train(gen), reps=3, warmup=1)
+    emit({"phase": "sampled_path", "mode": "gather",
+          "calls": dict(g_counts), "steps": g_steps,
+          "launches": g_launches, "train_losses": g_trainer.train_losses,
+          "dev_losses": g_trainer.dev_losses, "seconds": g_seconds,
+          "host_ms_per_step": g_seconds / g_steps * 1e3,
+          "ms_per_step_events": g_call_ms / 8,
+          "sync_free_call": g_sync_free})
+    emit({"phase": "sampled_path",
+          "seconds": time.perf_counter() - t_phase})
+    return ({"dtw_path": launches["dtw_path"],
+             "dtw_moves": g_launches["dtw_moves"],
+             "dtw_costs": launches["dtw_costs"] + g_launches["dtw_costs"]},
+            lambda: train_call(gen))
+
+
+def tree_leaves(node):
+    """The arrays of a checkpoint subtree (lists in order, dicts by sorted
+    key)."""
+    if isinstance(node, list):
+        return [x for v in node for x in tree_leaves(v)]
+    if isinstance(node, dict):
+        return [x for k in sorted(node) for x in tree_leaves(node[k])]
+    return [np.asarray(node)]
+
+
+def phase_optimizers(main_trainer, main_loader, steps=3):
+    """adagrad, RMSprop and LBFGS (optax's semantics,
+    ``abnet3_torch/optim.py``) on the flagship split bank matrix step at
+    full width: ``steps`` steps on the flagship loader's first batches
+    from the main path's trained weights. Checks: finite losses; the
+    first step's loss equal to the CPU's (rtol 1e-4) and the parameters
+    after it within atol 1e-5; one path-kernel launch per step, none per
+    linesearch evaluation; a ``.ckpt`` that reloads into an equal
+    optimizer state. Returns the path-kernel launches."""
+    from itertools import islice
+
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.ops.cuda_dtw import dtw_path_cuda
+    from abnet3_torch.parallel import make_split_pair_train_step
+    from abnet3_torch.trainer import TrainerSiamese
+    from abnet3_torch.weights import to_jax_numpy
+    t_phase = time.perf_counter()
+    batches = list(islice(main_loader.batch_iterator(train_mode=True),
+                          steps))
+    bank = main_loader.token_bank
+    total = 0
+    for kind in ("adagrad", "RMSprop", "LBFGS"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            net = network_copy(main_trainer.network,
+                               None if dev == "cuda" else "cpu")
+            net.output_path = os.path.join(OUT, f"opt_{kind}_{dev}")
+            trainer = TrainerSiamese(
+                network=net, loss=coscos2(avg=True), dataloader=main_loader,
+                optimizer_type=kind, lr=0.1 if kind != "LBFGS" else 1.0,
+                seed=0, device=dev, log_dir=os.path.join(OUT, "opt_logs"))
+            dbank = bank if dev == "cuda" else cpu_bank(bank)
+            losses, evals, ms = [], [], []
+            before = dtw_path_cuda.launches
+            for i, b in enumerate(batches if dev == "cuda"
+                                  else batches[:1]):
+                step, _ = make_split_pair_train_step(
+                    net, trainer.loss, trainer.optimizer, dbank,
+                    max_frames=b.bucket)
+                args = [t.to(dev) for t in main_trainer._args_for(b)]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                value = step(*args)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(value))
+                if kind == "LBFGS":
+                    evals.append(trainer.optimizer.num_linesearch_steps)
+                if i == 0:
+                    first_params = to_jax_numpy(net)[0]
+            runs[dev] = dict(losses=losses, evals=evals, ms=ms,
+                             launches=dtw_path_cuda.launches - before,
+                             params=first_params, trainer=trainer)
+        card, cpu = runs["cuda"], runs["cpu"]
+        if not all(math.isfinite(v) for v in card["losses"]):
+            raise AssertionError(f"{kind}: non-finite losses "
+                                 f"{card['losses']}")
+        if not math.isclose(card["losses"][0], cpu["losses"][0],
+                            rel_tol=1e-4):
+            raise AssertionError(f"{kind}: first step card "
+                                 f"{card['losses'][0]} vs CPU "
+                                 f"{cpu['losses'][0]}")
+        diff = max(float(np.abs(card["params"][l][k]
+                                - cpu["params"][l][k]).max())
+                   for l in cpu["params"] for k in cpu["params"][l])
+        if diff > 1e-5:
+            raise AssertionError(f"{kind}: params after one step differ "
+                                 f"by {diff}")
+        if card["launches"] != len(batches) or cpu["launches"] != 0:
+            raise AssertionError(f"{kind}: {card['launches']} path-kernel "
+                                 f"launches for {len(batches)} steps")
+        total += card["launches"]
+        # the .ckpt round trip of the card's optimizer state
+        tr = card["trainer"]
+        tr.best_dev, tr.patience_dev, tr.best_epoch = None, 0, 0
+        tr.train_losses, tr.dev_losses = [], []
+        tr.save_checkpoint(0)
+        saved = tr._opt_state_tree()
+        fresh = TrainerSiamese(
+            network=network_copy(main_trainer.network),
+            loss=coscos2(avg=True), dataloader=main_loader,
+            optimizer_type=kind, seed=0, log_dir=os.path.join(OUT,
+                                                              "opt_logs"))
+        fresh.network.output_path = tr.network.output_path
+        fresh.load_checkpoint()
+        a, b = tree_leaves(saved), tree_leaves(fresh._opt_state_tree())
+        if len(a) != len(b) or not all(
+                x.dtype == y.dtype and np.array_equal(x, y)
+                for x, y in zip(a, b)):
+            raise AssertionError(f"{kind}: the .ckpt reloads into another "
+                                 "optimizer state")
+        emit({"phase": "optimizers", "optimizer": kind,
+              "losses": card["losses"], "first_step_cpu": cpu["losses"][0],
+              "params_max_abs_diff": diff, "launches": card["launches"],
+              "ms_per_step_host": card["ms"],
+              "linesearch_evaluations_per_step": card["evals"] or None,
+              "ckpt_leaves": len(a)})
+    emit({"phase": "optimizers", "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def eval_inventory(embedded, seed=1, n_classes=512, per_class=8,
                    files_per_speaker=4):
     """4,096 tokens of 20-96 frames cut from the embedded files: 512
@@ -1775,7 +2109,7 @@ def kernel_group(name):
     return "other"
 
 
-def phase_profile(of, run, reps, per_row=None):
+def phase_profile(of, run, reps, per_row=None, per="row"):
     """Where the time of ``reps`` calls of ``run`` goes on the card:
     device time by kernel group and the device's busy share of the
     profiled window (the profiler's own cost is in that window)."""
@@ -1823,7 +2157,7 @@ def phase_profile(of, run, reps, per_row=None):
             "top_kernels": [{"name": n[:80], "ms_per_rep": t / reps / 1e3}
                             for n, t in top]}
     if per_row:
-        line["kernel_launches_per_row"] = len(spans) / reps / per_row
+        line[f"kernel_launches_per_{per}"] = len(spans) / reps / per_row
     emit(line)
 
 
@@ -1880,13 +2214,19 @@ def main():
     g_trainer, g_loader, moves_launches, costs_gather = phase_gather_path(
         trainer, loader)
     by_path = phase_loaders_path(features, pairs, tokens, loader)
+    sampled, sampled_run = phase_sampled_path(features, classes, spk)
+    opt_launches = phase_optimizers(trainer, loader)
     bank, stats_launches, costs_eval, score_run = phase_eval_path(
         trainer.network, loader.features)
     # no path runs the cost kernel: each path phase reads its count
     costs_launches = (costs_main + costs_gather + costs_eval
-                      + sum(by_path["dtw_costs"].values()))
-    path_by_path = {"main_path": launches, **by_path["dtw_path"]}
-    moves_by_path = {"gather_path": moves_launches, **by_path["dtw_moves"]}
+                      + sum(by_path["dtw_costs"].values())
+                      + sampled["dtw_costs"])
+    path_by_path = {"main_path": launches, **by_path["dtw_path"],
+                    "sampled_path": sampled["dtw_path"],
+                    "optimizers": opt_launches}
+    moves_by_path = {"gather_path": moves_launches, **by_path["dtw_moves"],
+                     "sampled_gather": sampled["dtw_moves"]}
     if costs_launches != 0:
         raise AssertionError(f"the cost kernel ran {costs_launches} times "
                              "on the paths, which do not use it")
@@ -1897,6 +2237,8 @@ def main():
     phase_profile("train_step", run_step, reps=10)
     phase_profile("gather_step", gather_steps_run(g_trainer, g_loader),
                   reps=10)
+    phase_profile("sampled_call", sampled_run, reps=1, per_row=8,
+                  per="step")
     phase_profile("abx_tile", abx_tile_run(bank), reps=1, per_row=1024)
     phase_profile("abx_score", score_run, reps=1)
     emit({"kernels": [

@@ -448,3 +448,136 @@ def test_load_all_frames_on_the_card_matches_the_cpu(cuda_device):
                    for a, b, _ in same)
     c_card, c_cpu = cost(t_card, f_card), cost(t_cpu, f_cpu)
     assert abs(c_card - c_cpu) <= 1e-4 * c_cpu
+
+
+def _sampler_inventory(n_types=12, n_spk=4, per=6, seed=16):
+    """descr and P(type, speaker) of a random inventory, through the
+    port's sampler (the flagship's log sampling)."""
+    import random as pyrandom
+
+    from abnet3_torch.sampler import SamplerClusterSiamese
+    rng = pyrandom.Random(seed)
+    clusters = [[[f"f{rng.randrange(8)}", 0.1 * k, 0.1 * k + 0.2]
+                 for k in range(per)] for _ in range(n_types)]
+    spk = {f"f{i}": f"s{i % n_spk}" for i in range(8)}
+    sampler = SamplerClusterSiamese()
+    descr = sampler.analyze_clusters(clusters, spk)
+    return descr, sampler.type_speaker_sampling_p(descr, "log", "log")
+
+
+@pytest.mark.cuda
+def test_sampler_draws_on_the_card(cuda_device):
+    """The device pair sampler draws on the card: 200 batches pass the
+    chi-square test per configuration (p > 1e-3), one generator seed
+    gives identical ids, and the draw of given raw numbers equals the
+    CPU's exactly."""
+    from abnet3_torch.ops.sampling import (DevicePairSampler,
+                                           chi_square_by_config)
+    descr, proba = _sampler_inventory()
+    card = DevicePairSampler(descr, proba, batch_size=64,
+                             device=cuda_device)
+    cpu = DevicePairSampler(descr, proba, batch_size=64, device="cpu")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    batches = [card.sample(gen) for _ in range(200)]
+    assert batches[0][0].is_cuda
+    for r in chi_square_by_config(card, batches):
+        assert r["p"] > 1e-3, r
+    a, b = (card.sample(torch.Generator(device=cuda_device).manual_seed(7))
+            for _ in range(2))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    raws = card.raws(torch.Generator(device=cuda_device).manual_seed(8))
+    on_card = card._draw_from(raws)
+    on_cpu = cpu._draw_from([tuple(t.cpu() for t in r) for r in raws])
+    for x, y in zip(on_card, on_cpu):
+        assert torch.equal(x.cpu(), y)
+
+
+class _GivenDraw:
+    """A stand-in sampler that hands out one fixed draw."""
+
+    def __init__(self, draw):
+        self.draw = draw
+
+    def sample(self, generator, with_speakers=False):
+        return self.draw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix", [True, False])
+def test_sampled_step_on_the_card_matches_the_cpu(cuda_device, matrix):
+    """One sampled train step (K=1) on the card against the CPU, on the
+    same ids and weights: losses within rtol 1e-4, one launch of the
+    path kernel (matrix mode) or the move kernel (gather mode); a K=4
+    call draws on the card with no host sync."""
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.ops.sampling import DevicePairSampler
+    from abnet3_torch.parallel import make_sampled_train_step
+    from abnet3_torch.trainer import build_optimizer
+    descr, proba = _sampler_inventory()
+    feats = _token_feats(len(descr["tokens"]), 12, seed=17)
+    card_net, cpu_net = _two_nets(cuda_device)
+    sampler = DevicePairSampler(descr, proba, batch_size=32,
+                                device=cuda_device)
+    draw = sampler.sample(torch.Generator(device=cuda_device).manual_seed(1))
+    kernel = cuda_dtw.dtw_path_cuda if matrix else cuda_dtw.dtw_moves_cuda
+    out = {}
+    for dev, net in ((cuda_device, card_net), ("cpu", cpu_net)):
+        opt = build_optimizer("adadelta", net.parameters(), 0.1)
+        bank = TokenBank(feats, device=dev)
+        step = make_sampled_train_step(
+            net, coscos2(), opt, bank,
+            _GivenDraw(tuple(t.to(dev) for t in draw)), matrix_loss=matrix)
+        before = kernel.launches
+        out[str(dev)] = float(step(None))
+        if dev != "cpu":
+            assert kernel.launches == before + 1
+            call = make_sampled_train_step(net, coscos2(), opt, bank,
+                                           sampler, steps_per_call=4,
+                                           matrix_loss=matrix)
+            gen = torch.Generator(device=cuda_device).manual_seed(2)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                value = call(gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert torch.isfinite(value)
+    assert abs(out[str(cuda_device)] - out["cpu"]) <= 1e-4 * abs(out["cpu"])
+
+
+@pytest.mark.cuda
+def test_lbfgs_step_on_the_card_matches_the_cpu(cuda_device):
+    """One LBFGS step of the split bank matrix step on the card against
+    the CPU: the loss within rtol 1e-4, the parameters after it within
+    atol 1e-5, the same linesearch steps, one path-kernel launch."""
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.parallel import make_split_pair_train_step
+    from abnet3_torch.trainer import build_optimizer
+    from abnet3_torch.weights import to_jax_numpy
+    feats = _token_feats(40, 12, seed=18)
+    g = torch.Generator().manual_seed(19)
+    ids = torch.randperm(40, generator=g)
+    args = (ids[:8], ids[8:16], torch.ones(8), ids[16:24], ids[24:32],
+            torch.ones(8))
+    out = {}
+    card_net, cpu_net = _two_nets(cuda_device)
+    for dev, net in ((cuda_device, card_net), ("cpu", cpu_net)):
+        opt = build_optimizer("LBFGS", net.parameters(), 1.0)
+        step, _ = make_split_pair_train_step(
+            net, coscos2(), opt, TokenBank(feats, device=dev), max_frames=32)
+        before = cuda_dtw.dtw_path_cuda.launches
+        value = float(step(*(t.to(dev) for t in args)))
+        launches = cuda_dtw.dtw_path_cuda.launches - before
+        out[str(dev)] = (value, opt.num_linesearch_steps, launches,
+                         to_jax_numpy(net)[0])
+    card, cpu = out[str(cuda_device)], out["cpu"]
+    assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
+    assert card[1] == cpu[1] >= 1
+    assert (card[2], cpu[2]) == (1, 0)
+    for layer in cpu[3]:
+        for k in cpu[3][layer]:
+            diff = abs(card[3][layer][k] - cpu[3][layer][k]).max()
+            assert diff <= 1e-5, (layer, k, diff)

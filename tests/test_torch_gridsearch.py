@@ -365,6 +365,53 @@ def test_loader_yaml_matches_jax(corpus, tmp_path, monkeypatch, dataloader):
     assert at["n_triplets"] == aj["n_triplets"] > 0
 
 
+def test_on_device_sampler_yaml_runs_as_jax(corpus, tmp_path, monkeypatch):
+    """A YAML with DummySampler and OnDeviceSamplerDataLoader (pairs drawn
+    in the sampled steps) through both orchestrators on one shared
+    feature file: each writes its .pth, embeddings and abx.json, with
+    finite losses, the same train and eval calls and steps, and equal
+    ``n_triplets``. The losses differ: torch's generator cannot draw
+    ``jax.random``'s pairs."""
+    import abnet3_tpu.parallel
+    import abnet3_torch.parallel
+    from abnet3_tpu.features import FeaturesGenerator
+    from test_torch_sampled_step import _counting
+    wavdir, classes, spk = corpus
+    feats = str(tmp_path / "shared" / "features")
+    FeaturesGenerator(files=wavdir, output_path=feats, n_filters=8,
+                      normalization=True, norm_per_file=False).generate()
+    cfg = yaml.safe_load(_yaml_text(corpus, run="never", output_path=feats)
+                         .replace("{exp_path}", "EXP"))
+    p = cfg["default_params"]
+    p["sampler"] = {"class": "DummySampler", "arguments": {}}
+    p["dataloader"] = {"class": "OnDeviceSamplerDataLoader", "arguments": {
+        "std_file": classes, "spkid_file": spk, "batch_size": 16,
+        "num_max_minibatches": 5, "max_size_cluster": 10, "seed": 0,
+        "steps_per_call": 2}}
+    p["abx"]["arguments"].update(classes_path=classes, spkid_file=spk)
+    counts = {}
+    for name, module in (("jax", abnet3_tpu.parallel),
+                         ("torch", abnet3_torch.parallel)):
+        counts[name] = dict.fromkeys(("train_calls", "train_steps",
+                                      "eval_calls", "eval_steps"), 0)
+        _counting(monkeypatch, module, counts[name])
+    jexp, texp = _run_both(tmp_path, monkeypatch, yaml.safe_dump(cfg)
+                           .replace("EXP", "{exp_path}"))
+    assert counts["torch"] == counts["jax"]
+    # the epoch-0 eval, then 2 epochs of round(5 / 2) = 2 calls of 2 steps
+    assert counts["torch"]["train_steps"] == 8
+    for exp in (jexp, texp):
+        for f in ("network.pth", "embeddings.h5f", "abx.json"):
+            assert os.path.exists(os.path.join(exp, f)), (exp, f)
+    for split in ("train_loss", "dev_loss"):
+        lj, lt = _losses(jexp, split), _losses(texp, split)
+        assert len(lt) == len(lj) == 3
+        assert np.isfinite(lt).all()
+    aj = json.load(open(os.path.join(jexp, "abx.json")))
+    at = json.load(open(os.path.join(texp, "abx.json")))
+    assert at["n_triplets"] == aj["n_triplets"] > 0
+
+
 def test_cli_runs_the_pipeline_from_wavs(corpus, tmp_path):
     """``python -m abnet3_torch.gridsearch`` on the port's YAML, in a
     process of its own (no jax loaded, the port's own initialisation):
@@ -595,7 +642,7 @@ def test_num_jobs_spawn_pool(experiment, tmp_path):
     ("dataloader", "MultiTaskDataLoader", "A8"),
     ("trainer", "TrainerSiameseMultitask", "A8"),
     ("loss", "weighted_loss_multi", "A8"),
-    ("dataloader", "OnDeviceSamplerDataLoader", "A7"),
+    ("dataloader", "MultimodalDataLoader", "A10"),
     ("embedder", "MultimodalEmbedder", "A10"),
 ])
 def test_unported_class_raises(experiment, tmp_path, stage, name, item):

@@ -20,7 +20,8 @@ SLICE_MODULES = [
     "abnet3_torch.models.siamese", "abnet3_torch.loss",
     "abnet3_torch.ops", "abnet3_torch.ops.dtw", "abnet3_torch.ops.cuda_dtw",
     "abnet3_torch.ops.strip_schedule", "abnet3_torch.ops.kernel_bench",
-    "abnet3_torch.ops.bank", "abnet3_torch.parallel",
+    "abnet3_torch.ops.bank", "abnet3_torch.ops.sampling",
+    "abnet3_torch.optim", "abnet3_torch.parallel",
     "abnet3_torch.parallel.mesh", "abnet3_torch.dataloader",
     "abnet3_torch.trainer", "abnet3_torch.sampler",
     "abnet3_torch.embedder", "abnet3_torch.eval", "abnet3_torch.eval.abx",
@@ -38,7 +39,8 @@ def test_import_leaves_jax_out():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'abnet3_tpu', 'h5py', 'yaml', 'optax') "
+        "('jax', 'jaxlib', 'abnet3_tpu', 'h5py', 'yaml', 'optax', "
+        "'tensorboardX', 'matplotlib') "
         "or m.startswith('scipy.io'))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
@@ -186,3 +188,29 @@ def test_new_loaders_default_device_raises_without_card(no_cuda, tmp_path,
     dl.features = Features_Accessor(times, feats)
     with pytest.raises(RuntimeError, match="CUDA"):
         next(dl.batch_iterator())
+
+
+def test_on_device_sampler_default_device_raises_without_card(no_cuda,
+                                                              tmp_path):
+    """The on-device sampler path places its banks and sampler tables on
+    the card by default: without one, load_data and a bare
+    DevicePairSampler raise instead of running on the CPU."""
+    from abnet3_torch.dataloader import OnDeviceSamplerDataLoader
+    from abnet3_torch.ops.sampling import DevicePairSampler
+    from abnet3_torch.utils import Features_Accessor
+    classes = tmp_path / "w.classes"
+    classes.write_text("0 a\nf 0.00 0.05\nf 0.10 0.15\n\n"
+                       "1 b\nf 0.20 0.25\nf 0.30 0.35\n")
+    spk = tmp_path / "spk.txt"
+    spk.write_text("f s\n")
+    dl = OnDeviceSamplerDataLoader(None, std_file=str(classes),
+                                   spkid_file=str(spk), batch_size=4)
+    dl.features = Features_Accessor(
+        {"f": np.arange(40) * 0.01 + 0.0025},
+        {"f": np.ones((40, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dl.load_data()
+    descr = {"tokens_type": [0, 0], "tokens_speaker": ["s", "s"]}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevicePairSampler(descr, {"Stype_Sspk": {("s", 0): 1.0}},
+                          batch_size=2)

@@ -198,8 +198,41 @@ def test_optimizers_match_optax(opt, lr):
 
 @pytest.mark.parametrize("opt", ["adagrad", "RMSprop", "LBFGS"])
 def test_unported_optimizers_raise(opt):
-    with pytest.raises(NotImplementedError):
-        build_optimizer(opt, [torch.nn.Parameter(torch.zeros(2))], 0.1)
+    """The three types that raised until they had optax's semantics now
+    build (:mod:`abnet3_torch.optim`) and take optax's first step on
+    sum(p**2) within 1e-6 (LBFGS with its closure); an unknown type
+    still raises."""
+    import jax
+    from abnet3_tpu.trainer import build_optimizer as jbuild
+
+    def f(x):
+        return (x * x).sum()
+
+    p0 = np.asarray([0.5, -1.5, 2.0], np.float32)
+    jopt = jbuild(opt, 0.1)
+    pj = jnp.asarray(p0)
+    v, g = jax.value_and_grad(f)(pj)
+    u, _ = jopt.update(g, jopt.init(pj), pj, value=v, grad=g, value_fn=f)
+    pj = optax.apply_updates(pj, u)
+    pt = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    topt = build_optimizer(opt, [pt], 0.1)
+    assert type(topt).__module__ == "abnet3_torch.optim"
+
+    def closure():
+        pt.grad = None
+        value = f(pt)
+        value.backward()
+        return value.detach()
+
+    value = closure()
+    if opt == "LBFGS":
+        topt.step(closure, value=value)
+    else:
+        topt.step()
+    np.testing.assert_allclose(pt.detach().numpy(), np.asarray(pj), rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="unknown"):
+        build_optimizer("nadam", [pt], 0.1)
 
 
 def test_bfloat16_towers_raise():

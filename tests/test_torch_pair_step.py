@@ -248,3 +248,29 @@ def test_pair_step_gather_equals_matrix(adw):
     np.testing.assert_allclose(values[1], values[0], rtol=1e-5)
     assert_trees_close(to_numpy(to_jax_numpy(nets[0])), nets[1], rtol=0,
                        atol=1e-5)
+
+
+@pytest.mark.parametrize("flag,override", [
+    ("0", None), ("off", None), ("False", None), ("no", None),
+    ("1", None), ("on", None), ("TRUE", None), ("yes", None),
+    (None, None), ("", None), ("0", True), ("1", False)])
+def test_use_matrix_loss_reads_the_environment_as_jax(monkeypatch, flag,
+                                                      override):
+    """``ABNET3_MATRIX_LOSS`` off, on or unset, and an override beating
+    it: the port's choice equals JAX's ``use_matrix_loss`` for coscos2
+    and cosmargin."""
+    if flag is None:
+        monkeypatch.delenv("ABNET3_MATRIX_LOSS", raising=False)
+    else:
+        monkeypatch.setenv("ABNET3_MATRIX_LOSS", flag)
+    for name in ("coscos2", "cosmargin"):
+        jloss, tloss = _losses(name)
+        want = jpar.use_matrix_loss(jloss, override=override)
+        assert tpar.use_matrix_loss(tloss, override) == want
+        if override is not None:
+            assert want == override
+        elif flag is not None and flag.lower() in ("0", "off", "false",
+                                                   "no"):
+            assert want is False
+        else:
+            assert want is True

@@ -333,3 +333,40 @@ def test_checkpoint_of_another_optimizer_refused(corpus, tmp_path):
     with pytest.raises(ValueError, match=r"\[\[array\(\), tree, tree\], "
                        r"\[\]\].*adadelta.*\[\[\], \[tree, tree\], \[\]\]"):
         other.load_checkpoint()
+
+
+def test_metrics_jsonl_matches_jax_byte_for_byte(tmp_path):
+    """The port's MetricsWriter writes JAX's metrics.jsonl byte for byte,
+    a NaN and an infinity included, and TensorBoard event files beside
+    it where tensorboardX imports, as JAX's does."""
+    from abnet3_tpu.trainer import MetricsWriter as JWriter
+    from abnet3_torch.trainer import MetricsWriter as TWriter
+    values = [0.5, float("nan"), 1e-7, np.float32(0.1), float("inf"),
+              torch.tensor(2.25)]
+    for name, cls in (("jax", JWriter), ("torch", TWriter)):
+        w = cls(str(tmp_path / name))
+        for step, v in enumerate(values):
+            w.add_scalar("loss", v if name == "torch" or not isinstance(
+                v, torch.Tensor) else float(v), step)
+        w.close()
+    read = {n: (tmp_path / n / "metrics.jsonl").read_bytes()
+            for n in ("jax", "torch")}
+    assert read["torch"] == read["jax"]
+    assert b'"value": nan' in read["torch"]
+    events = {n: sorted(p.name.split(".")[0]
+                        for p in (tmp_path / n).glob("events.*"))
+              for n in ("jax", "torch")}
+    assert events["torch"] == events["jax"]
+
+
+def test_plots_and_summary(corpus, tmp_path, capsys):
+    """plot_train_erros writes <output_path>_plot.pdf (matplotlib imported
+    there only); plot_summary_statistics prints the pair counts."""
+    _, tt = _trainers(corpus, tmp_path, 1)
+    tt.num_epochs = 1
+    tt.train()
+    tt.plot_train_erros()
+    assert os.path.getsize(tt.network.output_path + "_plot.pdf") > 0
+    tt.statistics_training = {"same": 3}
+    tt.plot_summary_statistics()
+    assert "Number of same pairs seen: 3" in capsys.readouterr().out
