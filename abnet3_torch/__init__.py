@@ -10,7 +10,10 @@ as copies.
 Entry points: ``FeaturesGenerator`` (wavs -> features, and its CLI
 ``python -m abnet3_torch.features``), ``SamplerClusterSiamese`` (host
 only), ``OriginalDataLoader``, ``SiameseNetwork``, ``TrainerSiamese``,
-``EmbedderSiamese``, ``eval.abx.evaluate`` (and its CLI) and the
+``EmbedderSiamese``, their multitask counterparts
+(``MultiTaskDataLoader``, ``SiameseMultitaskNetwork``,
+``TrainerSiameseMultitask``, ``EmbedderSiameseMultitask``),
+``eval.abx.evaluate`` (and its CLI) and the
 orchestrator ``GridSearch`` (``python -m abnet3_torch.gridsearch
 exp.yaml``). They run on the card unless the caller asks for the CPU with
 ``device="cpu"`` (or ``cuda=False`` on the trainer and the embedder);

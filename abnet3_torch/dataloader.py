@@ -20,7 +20,10 @@ The counterpart of ``abnet3_tpu/dataloader.py``'s pair-file loaders.
 the bank backend as index groups into a device frame table
 (``frame_bank``), on the other two as frames drawn on the host.
 
-``PairsDataLoader`` (numeric-frame KNN pair files),
+``MultiTaskDataLoader`` adds the +1/-1 same/different-speaker label of
+every pair (``y_spk`` fields, from a file-to-speaker map) on every
+backend, for the multitask network. ``PairsDataLoader`` (numeric-frame
+KNN pair files),
 ``TemporalCoherenceDataLoader`` (temporal-coherence pairs only, word
 pairs for the dev pass) and ``FramesDataLoader`` (every pair aligned
 once, frame-index batches against a device frame table,
@@ -51,33 +54,39 @@ import torch
 
 from abnet3_torch.utils import (Features_Accessor, get_dtw_alignment,
                                 group_pairs, pow2_bucket, read_dataset,
-                                read_feats, resolve_device)
+                                read_feats, read_spkid_file, resolve_device)
 
 __all__ = ["Batch", "BankBatch", "SplitBankBatch", "FrameBankBatch",
            "DataLoader", "OriginalDataLoader", "PairsDataLoader",
            "TemporalCoherenceDataLoader", "FramesDataLoader",
-           "OnDeviceSamplerDataLoader", "prefetch_iterator"]
+           "MultiTaskDataLoader", "OnDeviceSamplerDataLoader",
+           "prefetch_iterator"]
 
 
 class Batch(NamedTuple):
     """One batch of aligned frame pairs: x1, x2 (N, d), y (N,) +1 same /
     -1 different, weights (N,): 1 on path frames and 0 on the padding past
-    each pair's path (device backend), all 1 on the host backend."""
+    each pair's path (device backend), all 1 on the host backend; y_spk
+    (N,) +1 same / -1 different speaker, set by the multitask loader
+    only."""
     x1: torch.Tensor
     x2: torch.Tensor
     y: torch.Tensor
     weights: torch.Tensor
+    y_spk: torch.Tensor = None
 
 
 class BankBatch(NamedTuple):
     """An index batch of mixed same/diff pairs against the token bank
     (``bank_split=False``): token ids, per-pair labels and weights
-    (padded pairs: id 0, label +1, weight 0), the length bucket, and the
+    (padded pairs: id 0, label +1, weight 0), the speaker labels of the
+    multitask loader (padded pairs +1), the length bucket, and the
     optional temporal-coherence group (as in :class:`SplitBankBatch`)."""
     ids1: np.ndarray
     ids2: np.ndarray
     y: np.ndarray
     pair_w: np.ndarray
+    y_spk: np.ndarray = None
     bucket: int = None
     tcl_i1: np.ndarray = None
     tcl_i2: np.ndarray = None
@@ -93,13 +102,16 @@ class SplitBankBatch(NamedTuple):
     temporal-coherence group: frame-index pairs into the loader's
     ``frame_bank`` with their labels and weights; the step rescales the
     weights so that the group carries exactly tcl/(1-tcl) of the token
-    pairs' total weight."""
+    pairs' total weight. The multitask loader sets each group's speaker
+    labels (ragged tails +1)."""
     ids1s: np.ndarray
     ids2s: np.ndarray
     ws: np.ndarray     # (Bs,) same-pair validity weights
     ids1d: np.ndarray
     ids2d: np.ndarray
     wd: np.ndarray     # (Bd,) diff-pair validity weights
+    y_spk_s: np.ndarray = None
+    y_spk_d: np.ndarray = None
     bucket: int = None
     tcl_i1: np.ndarray = None
     tcl_i2: np.ndarray = None
@@ -211,6 +223,11 @@ def _pad_tokens(feats: Sequence[np.ndarray], T: int
     return out, lens
 
 
+def _take(arr: Optional[np.ndarray], index):
+    """``arr[index]``, or None for a missing label stream."""
+    return None if arr is None else arr[index]
+
+
 class OriginalDataLoader(DataLoader):
     """Pair files -> DTW-aligned frame-pair batches (``device`` and
     ``host`` backends) or index batches against a token bank (``bank``)
@@ -288,10 +305,12 @@ class OriginalDataLoader(DataLoader):
                 and self.frame_bank is None):
             self._build_frame_bank()
 
-    def _build_token_bank(self):
+    def _build_token_bank(self, fid2spk=None):
         """Copy every unique token of both splits into one device-resident
-        TokenBank and precompute per-split (id1, id2, y, bucket) arrays,
-        length-sorted so batches hold similar-length pairs."""
+        TokenBank and precompute per-split (id1, id2, y, y_spk, bucket)
+        arrays, length-sorted so batches hold similar-length pairs;
+        ``y_spk`` (+1 same / -1 different speaker, from ``fid2spk``) is
+        None without a speaker map."""
         from abnet3_torch.ops.bank import TokenBank
         all_pairs = {m: group_pairs(self.pairs[m]) for m in
                      ("train", "dev")}
@@ -306,7 +325,7 @@ class OriginalDataLoader(DataLoader):
         self._bank_pairs = {}
         key_to_id = self.token_bank.key_to_id
         for m in ("train", "dev"):
-            ids1, ids2, ys = [], [], []
+            ids1, ids2, ys, yspk = [], [], [], []
             for f1, s1, e1, f2, s2, e2, ptype in self.pairs[m]:
                 k1, k2 = (f1, s1, e1), (f2, s2, e2)
                 if k1 not in key_to_id or k2 not in key_to_id:
@@ -314,9 +333,13 @@ class OriginalDataLoader(DataLoader):
                 ids1.append(key_to_id[k1])
                 ids2.append(key_to_id[k2])
                 ys.append(1.0 if ptype == "same" else -1.0)
+                if fid2spk is not None:
+                    yspk.append(1.0 if fid2spk[f1] == fid2spk[f2] else -1.0)
             ids1 = np.asarray(ids1, np.int32)
             ids2 = np.asarray(ids2, np.int32)
             ys = np.asarray(ys, np.float32)
+            yspk = (np.asarray(yspk, np.float32) if fid2spk is not None
+                    else None)
             lens = self.token_bank.lengths_host
             pair_len = np.maximum(lens[ids1], lens[ids2])
             order = np.argsort(pair_len, kind="stable")
@@ -329,19 +352,20 @@ class OriginalDataLoader(DataLoader):
                                                   self.token_bank.max_len)}))
             buckets = ladder[np.searchsorted(ladder, pair_len[order])]
             self._bank_pairs[m] = (ids1[order], ids2[order], ys[order],
-                                   buckets)
+                                   _take(yspk, order), buckets)
 
     def _epoch_bank_pairs(self, mode):
-        """Pairs for one epoch: length-sorted, and (with
-        shuffle_between_epochs) re-shuffled within equal-bucket groups."""
-        ids1, ids2, ys, buckets = self._bank_pairs[mode]
+        """Pairs for one epoch, (ids1, ids2, ys, yspk): length-sorted, and
+        (with shuffle_between_epochs) re-shuffled within equal-bucket
+        groups."""
+        ids1, ids2, ys, yspk, buckets = self._bank_pairs[mode]
         if not self.shuffle_between_epochs or len(ids1) == 0:
-            return ids1, ids2, ys
+            return ids1, ids2, ys, yspk
         order = np.arange(len(ids1))
         for b in np.unique(buckets):
             grp = np.flatnonzero(buckets == b)
             order[grp] = self._rng.permutation(order[grp])
-        return ids1[order], ids2[order], ys[order]
+        return ids1[order], ids2[order], ys[order], _take(yspk, order)
 
     def get_token_feats(self, pairs, frames=False):
         """Slice unique token features (reference dataloader.py:147-164);
@@ -408,12 +432,12 @@ class OriginalDataLoader(DataLoader):
         :class:`SplitBankBatch` (``bank_split``) or :class:`BankBatch`."""
         self.load_data()
         mode = "train" if train_mode else "dev"
-        ids1, ids2, ys = self._epoch_bank_pairs(mode)
+        ids1, ids2, ys, yspk = self._epoch_bank_pairs(mode)
         num_pairs = len(ids1)
         if num_pairs == 0:  # empty split: no batches
             return
         if self.bank_split:
-            yield from self._split_bank_batches(ids1, ids2, ys,
+            yield from self._split_bank_batches(ids1, ids2, ys, yspk,
                                                 count_stats=train_mode)
             return
         bs = self.batch_size
@@ -428,6 +452,7 @@ class OriginalDataLoader(DataLoader):
         for b in selected:
             sl = slice(b * bs, (b + 1) * bs)
             bi1, bi2, by = ids1[sl], ids2[sl], ys[sl]
+            bspk = _take(yspk, sl)
             n = len(bi1)
             bucket = self.token_bank.bucket_for(
                 int(np.maximum(lens[bi1], lens[bi2]).max()))
@@ -437,6 +462,8 @@ class OriginalDataLoader(DataLoader):
                 bi1 = np.concatenate([bi1, np.zeros(pad, np.int32)])
                 bi2 = np.concatenate([bi2, np.zeros(pad, np.int32)])
                 by = np.concatenate([by, np.ones(pad, np.float32)])
+                if bspk is not None:
+                    bspk = np.concatenate([bspk, np.ones(pad, np.float32)])
                 w[n:] = 0.0
             if train_mode:
                 self.statistics_training["SameType"] += int(
@@ -444,7 +471,7 @@ class OriginalDataLoader(DataLoader):
                 self.statistics_training["DiffType"] += int(
                     ((by < 0) & (w > 0)).sum())
             yield BankBatch(bi1.astype(np.int32), bi2.astype(np.int32),
-                            by, w, bucket=bucket, **self._tcl_fields())
+                            by, w, bspk, bucket=bucket, **self._tcl_fields())
 
     def _tcl_fields(self):
         """The batch's temporal-coherence group as BankBatch /
@@ -456,13 +483,16 @@ class OriginalDataLoader(DataLoader):
             return dict(tcl_i1=ti1, tcl_i2=ti2, tcl_y=ty, tcl_w=tw)
         return {}
 
-    def _split_bank_batches(self, ids1, ids2, ys, count_stats=True):
+    def _split_bank_batches(self, ids1, ids2, ys, yspk=None,
+                            count_stats=True):
         """Yield SplitBankBatch index batches with static per-group sizes:
         Bs same + Bd diff pairs per batch (proportional to the split's
-        global same/diff ratio; ragged tails weigh 0)."""
+        global same/diff ratio; ragged tails weigh 0, their speaker labels
+        +1)."""
         same = ys > 0
         s1, s2 = ids1[same], ids2[same]
         d1, d2 = ids1[~same], ids2[~same]
+        spk_s, spk_d = _take(yspk, same), _take(yspk, ~same)
         n_s, n_d = len(s1), len(d1)
         bs = self.batch_size
         Bs = max(1, round(bs * n_s / max(n_s + n_d, 1))) if n_s else 1
@@ -478,12 +508,13 @@ class OriginalDataLoader(DataLoader):
             selected = self._rng.permutation(num_batches)
         lens = self.token_bank.lengths_host
 
-        def take(arr, b, B):
+        def take(arr, b, B, fill=0):
             sl = arr[b * B:(b + 1) * B]
             w = np.ones(B, np.float32)
             if len(sl) < B:
                 w[len(sl):] = 0.0
-                sl = np.concatenate([sl, np.zeros(B - len(sl), arr.dtype)])
+                sl = np.concatenate([sl, np.full(B - len(sl), fill,
+                                                 arr.dtype)])
             return sl, w
 
         for b in selected:
@@ -503,48 +534,59 @@ class OriginalDataLoader(DataLoader):
                 maxlen = max(maxlen, int(np.maximum(
                     lens[bi1d], lens[bi2d])[wd > 0].max()))
             bucket = self.token_bank.bucket_for(maxlen)
+            bspk_s = bspk_d = None
+            if yspk is not None:
+                bspk_s, _ = take(spk_s, b, Bs, fill=1.0)
+                bspk_d, _ = take(spk_d, b, Bd, fill=1.0)
             if count_stats:  # train pairs only (dev passes don't count)
                 self.statistics_training["SameType"] += int(ws.sum())
                 self.statistics_training["DiffType"] += int(wd.sum())
-            yield SplitBankBatch(bi1s, bi2s, ws, bi1d, bi2d, wd,
-                                 bucket=bucket, **self._tcl_fields())
+            yield SplitBankBatch(bi1s, bi2s, ws, bi1d, bi2d, wd, bspk_s,
+                                 bspk_d, bucket=bucket, **self._tcl_fields())
 
     # -- device batch construction ----------------------------------------
 
     def _collect_pair_feats(self, pairs, token_feats, group):
-        """Valid (feat1, feat2) pairs of one group; drops the degenerate
-        tokens the reference skips (reference dataloader.py:184-190)."""
+        """Valid pairs of one group as ((feat1, feat2), pair), pair the
+        6-tuple of the pair file; drops the degenerate tokens the
+        reference skips (reference dataloader.py:184-190)."""
         out = []
-        for f1, s1, e1, f2, s2, e2 in pairs[group]:
+        for pair in pairs[group]:
+            f1, s1, e1, f2, s2, e2 = pair
             if (s1 > e1) or (s2 > e2):
                 continue
             feat1 = token_feats[f1, s1, e1]
             feat2 = token_feats[f2, s2, e2]
             if len(feat1) == 0 or len(feat2) == 0:
                 continue
-            out.append((feat1, feat2))
+            out.append(((feat1, feat2), pair))
         return out
 
-    def load_frames_from_pairs_device(self, pairs):
+    def load_frames_from_pairs_device(self, pairs, fid2spk=None):
         """Device-aligned batch of grouped pairs ({'same': [...], 'diff':
         [...]}), or None when no pair is valid (reference
-        dataloader.py:166-261)."""
-        return self._assemble_device(pairs, self.get_token_feats(pairs))
+        dataloader.py:166-261); with ``fid2spk`` it carries the speaker
+        labels."""
+        return self._assemble_device(pairs, self.get_token_feats(pairs),
+                                     fid2spk)
 
-    def _assemble_device(self, pairs, token_feats):
+    def _assemble_device(self, pairs, token_feats, fid2spk=None):
         """Pad each group into power-of-two length buckets, align it on
         the device (DTW for same pairs, truncate/diagonal for different
         ones), gather the aligned frames and flatten both groups into one
-        :class:`Batch`; frames past a pair's path weigh 0. Counts the
-        pairs of every pass in ``statistics_training``, as the JAX loader
-        does."""
+        :class:`Batch`; frames past a pair's path weigh 0. With a
+        file-to-speaker map each frame pair gets its pair's +1/-1 speaker
+        label (``y_spk``). Counts the pairs of every pass in
+        ``statistics_training`` (with speakers, also by
+        ``<type>SameSpk``/``<type>DiffSpk``), as the JAX loader does."""
         from abnet3_torch.ops.dtw import aligned_frame_pairs
         dev = resolve_device(self.device)
-        segs = []
+        segs, spk_segs = [], []
         for group in ("same", "diff"):
-            feats = self._collect_pair_feats(pairs, token_feats, group)
-            if not feats:
+            collected = self._collect_pair_feats(pairs, token_feats, group)
+            if not collected:
                 continue
+            feats = [f for f, _ in collected]
             is_same = group == "same"
             T1 = pow2_bucket(max(len(a) for a, _ in feats))
             T2 = pow2_bucket(max(len(b) for _, b in feats))
@@ -555,21 +597,42 @@ class OriginalDataLoader(DataLoader):
             segs.append(aligned_frame_pairs(
                 f1, f2, n1, n2, is_same,
                 align_different_words=self.align_different_words))
-            self.statistics_training[
-                "SameType" if is_same else "DiffType"] += len(feats)
+            key = "SameType" if is_same else "DiffType"
+            self.statistics_training[key] += len(feats)
+            if fid2spk is not None:
+                same_spk = [fid2spk[p[0]] == fid2spk[p[3]]
+                            for _, p in collected]
+                spk_segs.append(torch.from_numpy(np.repeat(
+                    np.where(same_spk, 1.0, -1.0).astype(np.float32),
+                    segs[-1][0].shape[0] // len(feats))).to(dev))
+                for s in same_spk:
+                    self.statistics_training[
+                        key + ("SameSpk" if s else "DiffSpk")] += 1
         if not segs:
             return None
-        return Batch(*(torch.cat(parts) for parts in zip(*segs)))
+        y_spk = torch.cat(spk_segs) if fid2spk is not None else None
+        return Batch(*(torch.cat(parts) for parts in zip(*segs)),
+                     y_spk=y_spk)
 
     # -- host batch construction --------------------------------------------
 
-    def load_frames_from_pairs(self, pairs, seed=0, frames=False):
+    def load_frames_from_pairs(self, pairs, seed=0, fid2spk=None,
+                               frames=False):
         """The reference's host batch (reference dataloader.py:166-261):
         same pairs aligned by host DTW, diff pairs truncated (or
         stretched along the diagonal), all frames stacked and shuffled by
-        ``RandomState(seed)``. Returns numpy (X1, X2, y)."""
+        ``RandomState(seed)``. Returns numpy (X1, X2, y), or with a
+        file-to-speaker map (X1, X2, y_spk, y)."""
         token_feats = self.get_token_feats(pairs, frames=frames)
-        X1, X2, y_phn = [], [], []
+        X1, X2, y_phn, y_spk = [], [], [], []
+
+        def speakers(f1, f2, kind, n):
+            if fid2spk:
+                same_spk = fid2spk[f1] == fid2spk[f2]
+                y_spk.append((1.0 if same_spk else -1.0) * np.ones(n))
+                self.statistics_training[
+                    kind + ("SameSpk" if same_spk else "DiffSpk")] += 1
+
         for f1, s1, e1, f2, s2, e2 in pairs["same"]:
             if (s1 > e1) or (s2 > e2):
                 continue
@@ -580,6 +643,7 @@ class OriginalDataLoader(DataLoader):
             except Exception:
                 continue
             self.statistics_training["SameType"] += 1
+            speakers(f1, f2, "SameType", len(path1))
             X1.append(feat1[path1, :])
             X2.append(feat2[path2, :])
             y_phn.append(np.ones(len(path1)))
@@ -602,21 +666,28 @@ class OriginalDataLoader(DataLoader):
             X2.append(word2)
             y_phn.append(-1 * np.ones(len(word1)))
             self.statistics_training["DiffType"] += 1
+            speakers(f1, f2, "DiffType", len(word1))
 
         X1, X2 = np.vstack(X1), np.vstack(X2)
         y_phn = np.concatenate(y_phn)
         rng = np.random.RandomState(seed)
         ind = rng.permutation(len(y_phn))
+        if fid2spk:
+            return X1[ind, :], X2[ind, :], np.concatenate(y_spk)[ind], \
+                y_phn[ind]
         return X1[ind, :], X2[ind, :], y_phn[ind]
 
-    def _host_batch(self, X1, X2, y) -> Batch:
+    def _host_batch(self, X1, X2, y, y_spk=None) -> Batch:
         """Host frame arrays as a :class:`Batch` on the loader's device
         (float32, every row weight 1)."""
         dev = resolve_device(self.device)
-        y = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
-        return Batch(torch.from_numpy(np.asarray(X1, np.float32)).to(dev),
-                     torch.from_numpy(np.asarray(X2, np.float32)).to(dev),
-                     y, torch.ones(len(y), dtype=torch.float32, device=dev))
+
+        def put(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        y = put(y)
+        return Batch(put(X1), put(X2), y,
+                     torch.ones(len(y), dtype=torch.float32, device=dev),
+                     None if y_spk is None else put(y_spk))
 
     # -- temporal coherence pairs -------------------------------------------
 
@@ -668,7 +739,7 @@ class OriginalDataLoader(DataLoader):
         if len(Y_t) == 0:
             return batch
         t = self._host_batch(X1_t, X2_t, Y_t)
-        return Batch(*(torch.cat([a, b]) for a, b in zip(batch, t)))
+        return Batch(*(torch.cat([a, b]) for a, b in zip(batch[:4], t[:4])))
 
     def _build_frame_bank(self):
         """Device frame table for temporal-coherence sampling: the train
@@ -1055,13 +1126,9 @@ class FramesDataLoader(OriginalDataLoader):
         grouped, token_feats, offsets, table = self._token_table(pairs)
         idx1, idx2, labels = [], [], []
 
-        same = self._collect_pair_feats(grouped, token_feats, "same")
-        same_keys = [
-            ((f1, s1, e1), (f2, s2, e2))
-            for f1, s1, e1, f2, s2, e2 in grouped["same"]
-            if not (s1 > e1 or s2 > e2)
-            and len(token_feats[f1, s1, e1]) > 0
-            and len(token_feats[f2, s2, e2]) > 0]
+        collected = self._collect_pair_feats(grouped, token_feats, "same")
+        same = [f for f, _ in collected]
+        same_keys = [(p[:3], p[3:]) for _, p in collected]
         for c0 in range(0, len(same), self.align_chunk):
             chunk = same[c0:c0 + self.align_chunk]
             kchunk = same_keys[c0:c0 + self.align_chunk]
@@ -1167,6 +1234,46 @@ class FramesDataLoader(OriginalDataLoader):
                 continue
             yield self._host_batch(table[chunk[:, 0]], table[chunk[:, 1]],
                                    chunk[:, 2])
+
+
+class MultiTaskDataLoader(OriginalDataLoader):
+    """Adds speaker labels for the multitask network (reference
+    dataloader.py:742-792): every pair's +1/-1 same/different-speaker
+    label from ``fid2spk_file`` (``fid spkid`` lines), as ``y_spk`` of
+    the device and host backends' :class:`Batch` and of the bank
+    backend's index batches. The device backend mixes no tcl pairs, as in
+    the JAX package; tcl on the bank backend is refused by the multitask
+    steps."""
+
+    def __init__(self, pairs_path, features_path, fid2spk_file=None,
+                 **kwargs):
+        super().__init__(pairs_path, features_path, **kwargs)
+        self.fid2spk_file = fid2spk_file
+
+    def _build_token_bank(self, fid2spk=None):
+        if fid2spk is None:
+            fid2spk = read_spkid_file(self.fid2spk_file)
+        super()._build_token_bank(fid2spk=fid2spk)
+
+    def batch_iterator(self, train_mode=True):
+        self.load_data()
+        if self.align_backend == "bank":
+            yield from self.bank_batch_iterator(train_mode)
+            return
+        mode = "train" if train_mode else "dev"
+        fid2spk = read_spkid_file(self.fid2spk_file)
+        batches, selected = self._select_batches(list(self.pairs[mode]))
+        for idx in selected:
+            grouped = group_pairs(batches[idx])
+            if self.align_backend == "device":
+                batch = self.load_frames_from_pairs_device(grouped,
+                                                           fid2spk=fid2spk)
+                if batch is not None:
+                    yield batch
+            else:
+                X1, X2, y_spk, y_phn = self.load_frames_from_pairs(
+                    grouped, fid2spk=fid2spk)
+                yield self._host_batch(X1, X2, y_phn, y_spk)
 
 
 class OnDeviceSamplerDataLoader(OriginalDataLoader):

@@ -1,16 +1,18 @@
 """Embedders: trained network -> h5features embedding export.
 
-The counterpart of ``abnet3_tpu/embedder.py``'s ``EmbedderBuilder`` and
-``EmbedderSiamese`` (reference embedder.py:19-100). All files' frames form
+The counterpart of ``abnet3_tpu/embedder.py``'s ``EmbedderBuilder``,
+``EmbedderSiamese`` and ``EmbedderSiameseMultitask`` (reference
+embedder.py:19-149). All files' frames form
 one stream cut into fixed-size chunks across file boundaries, so a corpus
 costs ``ceil(total_frames / batch_size)`` forwards however its frames are
 split into files; the tail chunk pads to a short ladder of sizes by
-repeating its last valid row. Only one tower runs, in ``eval()`` mode
-under ``torch.no_grad()``, on the network's device.
+repeating its last valid row. Only one branch runs, in ``eval()`` mode
+under ``torch.no_grad()``, on the network's device; the multitask
+network's two heads ride the same chunks.
 
 Not ported yet (they raise ``NotImplementedError``): the wire codecs
 (``transfer_dtype`` other than ``"float32"``), ``streaming=True``, the
-data-parallel ``mesh``, and the multitask and multimodal embedders.
+data-parallel ``mesh``, and the multimodal embedder.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import resolve_device
 
-__all__ = ["EmbedderBuilder", "EmbedderSiamese"]
+__all__ = ["EmbedderBuilder", "EmbedderSiamese", "EmbedderSiameseMultitask"]
 
 
 class EmbedderBuilder:
@@ -68,8 +70,9 @@ class EmbedderBuilder:
 
     def _forward_fn(self):
         """(rows, d) float32 tensor on the network's device -> (rows, d_out)
-        embeddings, one tower in eval mode (the network's mode is
-        restored after each call)."""
+        embeddings (a tuple of them, one a head, for the multitask
+        network), one branch in eval mode (the network's mode is restored
+        after each call)."""
         network = self.network
 
         @torch.no_grad()
@@ -97,7 +100,7 @@ class EmbedderBuilder:
                 return s
         return self.batch_size
 
-    def _embed_corpus(self, forward, feats_list):
+    def _embed_corpus(self, forward, feats_list, n_outputs: int = 1):
         """Embed every file's frames through fixed-size padded chunks.
 
         PACKED: the files' frames form one stream and chunks are cut from
@@ -106,34 +109,47 @@ class EmbedderBuilder:
         repeating its last valid row; pad rows are dropped. Up to
         ``window`` chunks are in flight on the device before the oldest is
         copied back, so the host cuts the next chunk while the card runs.
-        Returns one float32 (n_frames_i, d_out) array per file."""
+        Returns one float32 (n_frames_i, d_out) array per file; with
+        ``n_outputs`` > 1 ``forward`` returns a tuple of that many heads
+        and this a tuple of one such list per head."""
         bs = self.batch_size
         lens = [len(f) for f in feats_list]
         offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
         total = int(offsets[-1])
         device = self.network.device
+
+        def heads(emb):
+            return (emb,) if n_outputs == 1 else tuple(emb)
+
+        def per_file(outs):
+            lists = [[o[offsets[i]:offsets[i + 1]]
+                      for i in range(len(feats_list))] for o in outs]
+            return lists[0] if n_outputs == 1 else tuple(lists)
+
         if total == 0:
             # all-empty corpus: one zero forward gives the output width (a
             # (0, 0) feature set writes a malformed h5features container)
             dims = [f.shape[1] for f in feats_list
                     if getattr(f, "ndim", 0) == 2]
-            d_out = 0
+            d_out = [0] * n_outputs
             if feats_list and len(dims) == len(feats_list):
-                d_out = forward(torch.zeros(
+                d_out = [e.shape[1] for e in heads(forward(torch.zeros(
                     (self._pad_target(1), dims[0]), dtype=torch.float32,
-                    device=device)).shape[1]
-            return [np.zeros((0, d_out), np.float32) for _ in feats_list]
-        out = None  # (total, d_out), sized at the first drain
+                    device=device)))]
+            return per_file([np.zeros((0, d), np.float32) for d in d_out])
+        out = None  # per head (total, d_out), sized at the first drain
         window = 16
         pending = []  # (row_start, valid_rows, device output)
 
         def drain_one():
             nonlocal out
             c0, valid, emb = pending.pop(0)
-            host = emb[:valid].float().cpu().numpy()
+            hosts = [e[:valid].float().cpu().numpy() for e in heads(emb)]
             if out is None:
-                out = np.empty((total, host.shape[1]), np.float32)
-            out[c0:c0 + valid] = host
+                out = [np.empty((total, h.shape[1]), np.float32)
+                       for h in hosts]
+            for o, h in zip(out, hosts):
+                o[c0:c0 + valid] = h
 
         fi = 0
         for c0 in range(0, total, bs):
@@ -159,8 +175,7 @@ class EmbedderBuilder:
                 drain_one()
         while pending:
             drain_one()
-        return [out[offsets[i]:offsets[i + 1]]
-                for i in range(len(feats_list))]
+        return per_file(out)
 
     def embed(self):
         raise NotImplementedError("Unimplemented embed for class:",
@@ -183,3 +198,25 @@ class EmbedderSiamese(EmbedderBuilder):
             os.remove(self.output_path)
         write_h5features(self.output_path, "features", data.items(),
                          data.labels(), embeddings)
+
+
+class EmbedderSiameseMultitask(EmbedderBuilder):
+    """Multitask embedding export (reference embedder.py:103-149): reads
+    ``feature_path`` and writes the speaker head's embeddings to
+    ``output_path + ".spk"`` and the phone head's to ``output_path +
+    ".phn"``, both h5features."""
+
+    def embed(self):
+        from abnet3_torch.io.h5f import read_h5features, write_h5features
+        self._load()
+        forward = self._forward_fn()
+        data = read_h5features(self.feature_path, "features")
+        with stage_trace("embed"):
+            emb_spk, emb_phn = self._embed_corpus(forward, data.features(),
+                                                  n_outputs=2)
+        for suffix, embs in ((".spk", emb_spk), (".phn", emb_phn)):
+            path = self.output_path + suffix
+            if os.path.exists(path):
+                os.remove(path)
+            write_h5features(path, "features", data.items(), data.labels(),
+                             embs)

@@ -45,9 +45,6 @@ __all__ = ["GridSearch", "main"]
 # classes of the JAX package's stage modules not ported yet, with the
 # ROADMAP.md item that ports them
 _UNPORTED = {
-    "SiameseMultitaskNetwork": "A8", "MultiTaskDataLoader": "A8",
-    "TrainerSiameseMultitask": "A8", "EmbedderSiameseMultitask": "A8",
-    "KLLoss": "A8", "weighted_loss_multi": "A8",
     "MultimodalSiameseNetwork": "A10", "MultimodalDataLoader": "A10",
     "MultimodalTrainer": "A10", "MultimodalEmbedder": "A10",
 }
@@ -293,7 +290,8 @@ class GridSearch:
         spkid_file; the arguments go to
         :func:`abnet3_torch.eval.abx.evaluate` as they are
         (``score_backend``, ``checkpoint_path``, ``device_rows_per_block``
-        and ``device`` among them)."""
+        and ``device`` among them). The multitask embedder's phone head
+        (``.phn``), the subword stream, is the one scored."""
         abx_prop = single_experiment.get("abx")
         if not abx_prop or abx_prop.get("run", "always") == "never":
             return
@@ -309,7 +307,12 @@ class GridSearch:
                              "argument (or a sampler with std_file)")
         args.setdefault("spkid_file", getattr(sampler, "spkid_file",
                                               None))
-        emb_path = abx_prop.get("features_path") or embedder.output_path
+        emb_path = abx_prop.get("features_path")
+        if emb_path is None:
+            emb_path = embedder.output_path
+            if isinstance(embedder,
+                          abnet3_torch.embedder.EmbedderSiameseMultitask):
+                emb_path += ".phn"
         result = evaluate(emb_path, classes, **args)
         out = os.path.join(single_experiment["pathname_experience"],
                            "abx.json")

@@ -1,9 +1,11 @@
-"""Contrastive cosine losses and their cell decomposition.
+"""Contrastive losses and their cell decomposition.
 
-The counterpart of ``abnet3_tpu/loss.py`` for ``coscos2`` and
-``cosmargin``: the same math, with an optional per-example ``weights``
-vector so padded frames of ragged device batches contribute zero loss,
-and the cell hooks the matrix-mode train step
+The counterpart of ``abnet3_tpu/loss.py``: ``coscos2`` and ``cosmargin``
+(elementwise in the cosine), ``KLLoss`` (symmetric KL between
+distributions, e.g. softmax outputs) and the multitask
+``weighted_loss_multi``. The same math, with an optional per-example
+``weights`` vector so padded frames of ragged device batches contribute
+zero loss, and the cell hooks the matrix-mode train step
 (:mod:`abnet3_torch.parallel.mesh`) reduces under the DTW path mask.
 """
 
@@ -13,8 +15,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["cosine_similarity", "normalize_rows", "LossBuilder", "coscos2",
-           "cosmargin"]
+__all__ = ["cosine_similarity", "normalize_rows", "kl_loss_fn", "LossBuilder",
+           "coscos2", "cosmargin", "KLLoss", "weighted_loss_multi"]
 
 
 def cosine_similarity(x1: torch.Tensor, x2: torch.Tensor,
@@ -52,6 +54,27 @@ def _reduce(values: torch.Tensor, weights: Optional[torch.Tensor],
     return torch.sum(values)
 
 
+def _hinge(x, y, margin):
+    """HingeEmbeddingLoss: x where y == +1, max(0, margin - x) else."""
+    return torch.where(y > 0, x, torch.clamp(margin - x, min=0.0))
+
+
+def kl_loss_fn(input1, input2, y, margin=1.0, weights=None, avg=True,
+               eps=1e-8):
+    """Symmetric contrastive KL with a hinge on diff pairs (reference
+    loss.py:127-137). Inputs must be positive distributions (e.g. softmax
+    outputs).
+
+    ``eps`` keeps log() finite on saturated softmax outputs and on
+    all-zero padded rows (0*log(0/0) would poison the weighted sum with
+    NaN even at weight 0, since 0*nan = nan)."""
+    r = torch.log((input1 + eps) / (input2 + eps))
+    kld1 = torch.sum(input1 * r, dim=1)
+    kld2 = -torch.sum(input2 * r, dim=1)
+    return (_reduce(_hinge(kld1, y, margin), weights, avg)
+            + _reduce(_hinge(kld2, y, margin), weights, avg))
+
+
 class LossBuilder:
     """Generic loss wrapper (reference loss.py:15-34)."""
 
@@ -59,35 +82,42 @@ class LossBuilder:
     supports_cos = False
 
     #: True when the loss decomposes into per-cell statistics computable
-    #: for all (i, j) frame pairs at once, so the matrix-mode train step
-    #: can weight them by the DTW alignment mask.
+    #: for all (i, j) frame pairs at once via batched matmuls, so the
+    #: matrix-mode train step can weight them by the DTW alignment mask
+    #: (:func:`abnet3_torch.parallel.mesh.use_matrix_loss`). The hooks
+    #: below define the contract.
     supports_cells = False
 
     def __init__(self, *args, **kwargs):
         pass
 
     def pair_cells(self, e1, e2):
-        """(B, T1, E) x (B, T2, E) -> per-cell statistics (B, T1, T2)."""
+        """(B, T1, E) x (B, T2, E) -> per-cell statistics shaped
+        (*stat, B, T1, T2) (batched matmuls)."""
         raise NotImplementedError(
             "Loss has no cell decomposition:", self.__class__.__name__)
 
     def rowwise_cells(self, x1, x2):
-        """(N, E) x (N, E) aligned rows -> statistics (N,)."""
+        """(N, E) x (N, E) aligned rows -> statistics (*stat, N)."""
         raise NotImplementedError(
             "Loss has no cell decomposition:", self.__class__.__name__)
 
     def from_cells(self, cells, y, weights=None):
-        """Reduce per-cell statistics under labels y and weights."""
+        """Reduce per-cell statistics under labels y and weights (same
+        reduction semantics as __call__ on gathered rows)."""
         raise NotImplementedError(
             "Loss has no cell decomposition:", self.__class__.__name__)
 
     def masked_same_sum(self, e1, e2, A):
-        """sum over (i, j) cells of A[i, j] * value(cell, y=+1)."""
+        """sum over (i, j) cells of A[i, j] * value(cell, y=+1) via
+        matmuls: the per-cell statistics never materialise (the
+        matrix-mode path of the DTW-aligned same-word group)."""
         raise NotImplementedError(
             "Loss has no cell decomposition:", self.__class__.__name__)
 
     def cell_values(self, cells, y):
-        """Elementwise loss values (no reduction) under labels y."""
+        """Elementwise loss values (no reduction) from cell statistics
+        under labels y."""
         raise NotImplementedError(
             "Loss has no cell decomposition:", self.__class__.__name__)
 
@@ -177,3 +207,110 @@ class cosmargin(_CosCellsMixin, LossBuilder):
     def cell_values(self, cells, y):
         return torch.where(y > 0, 1.0 - cells,
                            torch.clamp(cells - self.margin, min=0.0))
+
+
+class KLLoss(LossBuilder):
+    """Symmetric contrastive KL (reference loss.py:108-137). Cell
+    decomposition: with distributions P (B, T1, E), Q (B, T2, E) and
+    H(p) = sum_d p_d log(p_d + eps),
+
+        kld1[i, j] = H(p_i) - P_i . log(Q_j + eps)   (one matmul)
+        kld2[i, j] = H(q_j) - log(P_i + eps) . Q_j   (one matmul)
+
+    so the KL-on-softmax recipe trains in matrix mode like the cosine
+    losses. Its cells carry a leading stat axis of 2 (kld1, kld2)."""
+
+    supports_cells = True
+
+    def __init__(self, margin=1, avg=True, eps=1e-8, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.margin = margin
+        self.avg = avg
+        self.eps = eps
+
+    def __call__(self, input1, input2, y, weights=None):
+        return kl_loss_fn(input1, input2, y, margin=self.margin,
+                          weights=weights, avg=self.avg, eps=self.eps)
+
+    def _logs(self, e1, e2):
+        """(log(e1 + eps), log(e2 + eps), H(e1), H(e2)) over the last
+        axis."""
+        l1 = torch.log(e1 + self.eps)
+        l2 = torch.log(e2 + self.eps)
+        return l1, l2, torch.sum(e1 * l1, dim=-1), torch.sum(e2 * l2, dim=-1)
+
+    def pair_cells(self, e1, e2):
+        l1, l2, h1, h2 = self._logs(e1, e2)
+        x12 = torch.bmm(e1, l2.transpose(1, 2))
+        x21 = torch.bmm(l1, e2.transpose(1, 2))
+        return torch.stack([h1[:, :, None] - x12, h2[:, None, :] - x21])
+
+    def rowwise_cells(self, x1, x2):
+        l1 = torch.log(x1 + self.eps)
+        l2 = torch.log(x2 + self.eps)
+        kld1 = torch.sum(x1 * (l1 - l2), dim=-1)
+        kld2 = -torch.sum(x2 * (l1 - l2), dim=-1)
+        return torch.stack([kld1, kld2])
+
+    def from_cells(self, cells, y, weights=None):
+        return (_reduce(_hinge(cells[0], y, self.margin), weights, self.avg)
+                + _reduce(_hinge(cells[1], y, self.margin), weights,
+                          self.avg))
+
+    def masked_same_sum(self, e1, e2, A):
+        """Same-pair KL is linear in the cell statistics (the hinge only
+        applies to diff pairs), so sum(A * (kld1 + kld2)) folds into two
+        masked matmuls plus entropy dot products."""
+        l1, l2, h1, h2 = self._logs(e1, e2)
+        s1 = (torch.sum(A.sum(2) * h1)
+              - torch.sum(e1 * torch.bmm(A, l2)))
+        s2 = (torch.sum(A.sum(1) * h2)
+              - torch.sum(l1 * torch.bmm(A, e2)))
+        return s1 + s2
+
+    def cell_values(self, cells, y):
+        return (_hinge(cells[0], y, self.margin)
+                + _hinge(cells[1], y, self.margin))
+
+
+class weighted_loss_multi(LossBuilder):
+    """weight * loss_spk + (1 - weight) * loss_phn for multitask training
+    (reference loss.py:140-182)."""
+
+    def __init__(self, avg=True, loss_phn=None, loss_spk=None, weight=0.5,
+                 *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        assert isinstance(weight, float)
+        assert 0 <= weight <= 1
+        self.weight = weight
+        self.avg = avg
+        self.loss_phn = loss_phn
+        self.loss_spk = loss_spk
+
+    def __call__(self, emb_spk1, emb_phn1, emb_spk2, emb_phn2, y_spk, y_phn,
+                 weights=None):
+        out_spk = self.loss_spk(emb_spk1, emb_spk2, y_spk, weights=weights)
+        out_phn = self.loss_phn(emb_phn1, emb_phn2, y_phn, weights=weights)
+        return self.weight * out_spk + (1.0 - self.weight) * out_phn
+
+    @property
+    def supports_multi_cells(self):
+        """True when both sub-losses have a cell decomposition, so the
+        multitask matrix-mode step can reduce per-head cell matrices under
+        one alignment mask."""
+        return (getattr(self.loss_spk, "supports_cells", False)
+                and getattr(self.loss_phn, "supports_cells", False))
+
+    def from_cells_multi(self, cells_spk, cells_phn, y_spk, y_phn,
+                         weights=None):
+        """The multitask loss on precomputed per-head cell statistics (the
+        weighting of __call__)."""
+        out_spk = self.loss_spk.from_cells(cells_spk, y_spk, weights=weights)
+        out_phn = self.loss_phn.from_cells(cells_phn, y_phn, weights=weights)
+        return self.weight * out_spk + (1.0 - self.weight) * out_phn
+
+    def whoami(self):
+        return {"params": {"weight": self.weight, "avg": self.avg,
+                           "loss_phn": self.loss_phn.whoami(),
+                           "loss_spk": self.loss_spk.whoami()},
+                "class_name": self.__class__.__name__}

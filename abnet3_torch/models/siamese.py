@@ -1,12 +1,15 @@
-"""Siamese MLP network as an ``nn.Module``.
+"""Siamese MLP networks as ``nn.Module``s.
 
-The counterpart of ``abnet3_tpu/models/siamese.py``. The two siamese
-branches share weights, so ``forward(x1, x2)`` concatenates both inputs
-into one ``(2N, d)`` batch and runs one pass through the tower.
-``save_network``/``load_network`` keep the ``<output_path><epoch>.pth``
-naming (reference model.py:204-208) and write the same npz payload as the
-JAX package (params ``layer_i/{w,b,bn_scale,bn_bias}``, state
-``bn_i/{mean,var}``), so either package loads the other's files.
+The counterpart of ``abnet3_tpu/models/siamese.py``: ``SiameseNetwork``
+(one tower) and ``SiameseMultitaskNetwork`` (a shared trunk and a speaker
+and a phone head). The two siamese branches share weights, so
+``forward(x1, x2)`` concatenates both inputs into one ``(2N, d)`` batch
+and runs one pass. ``save_network``/``load_network`` keep the
+``<output_path><epoch>.pth`` naming (reference model.py:204-208) and write
+the same npz payload as the JAX package (per tower, params
+``layer_i/{w,b,bn_scale,bn_bias}`` and state ``bn_i/{mean,var}``; the
+multitask network nests them under ``trunk``, ``spk`` and ``phn``), so
+either package loads the other's files.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from abnet3_torch.serialize import load_pytree, save_pytree
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
 
-__all__ = ["NetworkBuilder", "SiameseNetwork"]
+__all__ = ["NetworkBuilder", "SiameseNetwork", "SiameseMultitaskNetwork"]
 
 
 class NetworkBuilder(nn.Module):
@@ -45,10 +48,27 @@ class NetworkBuilder(nn.Module):
                            if not k.startswith("_") and k != "training"},
                 "class_name": self.__class__.__name__}
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
+    def jax_towers(self):
+        """[(key, tower)] in the JAX package's params tree: key None for
+        a tower whose layers sit at the top of the tree."""
         raise NotImplementedError(
-            "Unimplemented reset_parameters for class:",
-            self.__class__.__name__)
+            "Unimplemented jax_towers for class:", self.__class__.__name__)
+
+    @property
+    def device(self) -> torch.device:
+        return self.jax_towers()[0][1].layers[0].w.device
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Fresh init in place, tower by tower from one generator."""
+        for _, tower in self.jax_towers():
+            tower.reset_parameters(generator)
+
+    def replay(self) -> ForwardReplay:
+        """Taken just before a train-mode forward: ``with`` it, a later
+        forward replays that one's dropout masks and leaves every tower's
+        batch-norm buffers alone (:class:`abnet3_torch.nn.ForwardReplay`)."""
+        return ForwardReplay([t for _, t in self.jax_towers()],
+                             self._generator)
 
     def ensure_init(self, seed: int = 0) -> None:
         """Initialise the parameters from ``seed`` (drawn on the CPU, so
@@ -130,18 +150,8 @@ class SiameseNetwork(NetworkBuilder):
             type_init=type_init, gain_activation=activation_layer),
             device=resolve_device(device))
 
-    @property
-    def device(self) -> torch.device:
-        return self.tower.layers[0].w.device
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.tower.reset_parameters(generator)
-
-    def replay(self) -> ForwardReplay:
-        """Taken just before a train-mode forward: ``with`` it, a later
-        forward replays that one's dropout masks and leaves the
-        batch-norm buffers alone (:class:`abnet3_torch.nn.ForwardReplay`)."""
-        return ForwardReplay(self.tower, self._generator)
+    def jax_towers(self):
+        return [(None, self.tower)]
 
     def forward_once(self, x, weights=None):
         """One branch (used by the embedder and the matrix-mode step)."""
@@ -169,4 +179,89 @@ class SiameseNetwork(NetworkBuilder):
             "last_non_linearity": self.last_non_linearity,
             "output_path": self.output_path,
             "compute_dtype": str(self.compute_dtype),
+        }, "class_name": self.__class__.__name__}
+
+
+class SiameseMultitaskNetwork(NetworkBuilder):
+    """Shared trunk + separate speaker/phone heads (reference
+    model.py:211-376). The trunk is ``input_dim -> hidden_dim -> (
+    num_hidden_layers_shared x hidden_dim)``; each head is
+    ``hidden_dim -> (num_hidden_layers_{spk,phn} x hidden_dim) ->
+    output_dim``, every layer with ``activation_layer``. ``device``
+    defaults to the card."""
+
+    def __init__(self, input_dim=None, num_hidden_layers_shared=None,
+                 num_hidden_layers_spk=None, num_hidden_layers_phn=None,
+                 hidden_dim=None, output_dim=None, p_dropout=0.1,
+                 batch_norm=False, type_init="xavier_uni",
+                 activation_layer=None, output_path=None, device=None):
+        super().__init__()
+        assert activation_layer in ("relu", "sigmoid", "tanh", "softmax")
+        assert type_init in ("xavier_uni", "xavier_normal", "orthogonal")
+        for v in (input_dim, hidden_dim, output_dim, num_hidden_layers_shared,
+                  num_hidden_layers_spk, num_hidden_layers_phn):
+            assert isinstance(v, int)
+
+        self.input_dim = input_dim
+        self.num_hidden_layers_shared = num_hidden_layers_shared
+        self.num_hidden_layers_spk = num_hidden_layers_spk
+        self.num_hidden_layers_phn = num_hidden_layers_phn
+        self.hidden_dim = hidden_dim
+        self.output_dim = output_dim
+        self.p_dropout = p_dropout
+        self.activation_layer = activation_layer
+        self.batch_norm = batch_norm
+        self.type_init = type_init
+        self.output_path = output_path
+
+        dev = resolve_device(device)
+        act = activation_layer
+
+        def tower(dims):
+            return Tower(TowerSpec(
+                dims, [act] * (len(dims) - 1), p_dropout=p_dropout,
+                batch_norm=batch_norm, type_init=type_init,
+                gain_activation=act), device=dev)
+
+        # trunk: input layer + shared hiddens (reference model.py:271-291);
+        # heads: task hiddens + output layer (reference model.py:293-334)
+        self.trunk = tower([input_dim, hidden_dim]
+                           + [hidden_dim] * num_hidden_layers_shared)
+        self.head_spk = tower([hidden_dim] * (num_hidden_layers_spk + 1)
+                              + [output_dim])
+        self.head_phn = tower([hidden_dim] * (num_hidden_layers_phn + 1)
+                              + [output_dim])
+
+    def jax_towers(self):
+        return [("trunk", self.trunk), ("spk", self.head_spk),
+                ("phn", self.head_phn)]
+
+    def forward_once(self, x, weights=None):
+        """One branch: (emb_spk, emb_phn)."""
+        g = self._generator
+        h = self.trunk(x, weights=weights, generator=g)
+        return (self.head_spk(h, weights=weights, generator=g),
+                self.head_phn(h, weights=weights, generator=g))
+
+    def forward(self, x1, x2, weights=None):
+        """(spk1, phn1, spk2, phn2), fused over both branches like
+        :meth:`SiameseNetwork.forward`."""
+        n = x1.shape[0]
+        w = torch.cat([weights, weights]) if weights is not None else None
+        spk, phn = self.forward_once(torch.cat([x1, x2]), weights=w)
+        return spk[:n], phn[:n], spk[n:], phn[n:]
+
+    def whoami(self):
+        return {"params": {
+            "input_dim": self.input_dim,
+            "num_hidden_layers_shared": self.num_hidden_layers_shared,
+            "num_hidden_layers_spk": self.num_hidden_layers_spk,
+            "num_hidden_layers_phn": self.num_hidden_layers_phn,
+            "hidden_dim": self.hidden_dim,
+            "output_dim": self.output_dim,
+            "p_dropout": self.p_dropout,
+            "batch_norm": self.batch_norm,
+            "type_init": self.type_init,
+            "activation_layer": self.activation_layer,
+            "output_path": self.output_path,
         }, "class_name": self.__class__.__name__}

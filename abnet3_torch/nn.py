@@ -198,24 +198,27 @@ class Tower(nn.Module):
 
 
 class ForwardReplay:
-    """Re-run a train-mode forward of ``tower`` as it first ran: made just
+    """Re-run a train-mode forward of ``towers`` as it first ran: made just
     before that forward, it keeps the dropout generator's state. Inside
-    ``with replay:`` the tower draws the first forward's dropout masks
-    again and leaves its batch-norm buffers as the first forward left
+    ``with replay:`` the towers draw the first forward's dropout masks
+    again and leave their batch-norm buffers as the first forward left
     them; on exit the generator is where the first forward left it. This
     is what a step's extra loss evaluations need (an LBFGS linesearch
     evaluates the loss at other parameters, with the step's batch, masks
     and pre-step buffers, as the JAX package's ``value_fn`` does).
-    ``generator`` None stands for the device's default generator."""
+    ``towers`` are every tower the forward runs, all drawing from the one
+    ``generator`` (None stands for the device's default generator)."""
 
-    def __init__(self, tower: Tower, generator: Optional[torch.Generator]):
+    def __init__(self, towers: Sequence[Tower],
+                 generator: Optional[torch.Generator]):
+        towers = list(towers)
         if generator is None:
-            dev = tower.layers[0].w.device
+            dev = towers[0].layers[0].w.device
             generator = (torch.cuda.default_generators[
                 dev.index if dev.index is not None
                 else torch.cuda.current_device()]
                 if dev.type == "cuda" else torch.default_generator)
-        self.tower = tower
+        self.towers = towers
         self.generator = generator
         self.before = generator.get_state()
         self.after = None
@@ -224,10 +227,12 @@ class ForwardReplay:
         if self.after is None:
             self.after = self.generator.get_state()
         self.generator.set_state(self.before)
-        self.tower.update_stats = False
+        for tower in self.towers:
+            tower.update_stats = False
         return self
 
     def __exit__(self, *exc):
-        self.tower.update_stats = True
+        for tower in self.towers:
+            tower.update_stats = True
         self.generator.set_state(self.after)
         return False

@@ -2,12 +2,19 @@
 batches.
 
 The counterpart of ``abnet3_tpu/parallel/mesh.py`` (same file name, so
-the two are easy to pair) on one device: no mesh, no multitask labels,
-and no K-chaining (a dispatch trick of jit; the trainer keeps its step
-order instead). Each factory returns steps that take the batch's tensors
-on the network's device and return the loss as a 0-d device tensor; a
-train step also updates the parameters (``optimizer``) and the
-batch-norm buffers in place.
+the two are easy to pair) on one device: no mesh and no K-chaining (a
+dispatch trick of jit; the trainer keeps its step order instead). Each
+factory returns steps that take the batch's tensors on the network's
+device and return the loss as a 0-d device tensor; a train step also
+updates the parameters (``optimizer``) and the batch-norm buffers in
+place.
+
+``extra_labels=True`` trains the multitask family
+(``SiameseMultitaskNetwork`` with ``weighted_loss_multi``): the batches
+carry a second per-pair label stream, +1/-1 same/different speaker, in
+the JAX package's argument order, and the loss weighs the speaker head's
+loss against the phone head's. Matrix mode then runs one trunk pass and
+reduces each head's cells under the same alignment masks.
 
 - :func:`make_split_pair_train_step`: static same/diff groups
   (``SplitBankBatch``), the flagship step;
@@ -74,13 +81,16 @@ __all__ = ["make_split_pair_train_step", "make_pair_train_step",
            "make_sampled_eval_step", "use_matrix_loss"]
 
 
-def use_matrix_loss(loss, override: Optional[bool] = None) -> bool:
+def use_matrix_loss(loss, override: Optional[bool] = None,
+                    extra_labels: bool = False) -> bool:
     """Whether a step takes the matrix-loss path, as the JAX package
     decides: ``override`` when given, then the environment variable
     ``ABNET3_MATRIX_LOSS`` (``0``/``false``/``no``/``off`` forces the
     gather path, ``1``/``true``/``yes``/``on`` the matrix path, where a
     loss without a cell decomposition then fails loudly), else the matrix
-    path whenever the loss has a cell decomposition."""
+    path whenever the loss has a cell decomposition: for the multitask
+    family (``extra_labels``), a ``weighted_loss_multi`` both of whose
+    sub-losses have one (``supports_multi_cells``)."""
     if override is not None:
         return bool(override)
     flag = os.environ.get("ABNET3_MATRIX_LOSS", "").lower()
@@ -88,6 +98,8 @@ def use_matrix_loss(loss, override: Optional[bool] = None) -> bool:
         return False
     if flag in ("1", "true", "yes", "on"):
         return True
+    if extra_labels:
+        return getattr(loss, "supports_multi_cells", False)
     return getattr(loss, "supports_cells", False)
 
 
@@ -195,26 +207,34 @@ def _split_group_rows(e, A_s, A_d_parts):
     return e1s, e2s, e1d, e2d, e[i:]
 
 
-def _matrix_cell_terms(cell_loss, e, A_s, A_d_parts):
+def _matrix_cell_terms(cell_loss, e, A_s, A_d_parts, y_s=None, y_d=None):
     """Flattened (cells, y, weights) loss terms of embeddings laid out
-    [e1s; e2s; e1d; e2d; rest]: the same pairs' cosine cells under the
-    DTW mask (y=+1), the diff pairs' under the stretched-diagonal mask or,
-    in truncate mode, their diagonal rows (y=-1). Returns the terms and
+    [e1s; e2s; e1d; e2d; rest], from the loss's per-cell decomposition
+    (``pair_cells``/``rowwise_cells``: the cosine matrix of coscos2 and
+    cosmargin, the two KL matrices of KLLoss): the same pairs' cells under
+    the DTW mask, the diff pairs' under the stretched-diagonal mask or, in
+    truncate mode, their diagonal rows. Cells keep the loss's leading stat
+    axes, (*stat, n_cells). ``y_s``/``y_d`` are per-pair labels broadcast
+    over each pair's cells (the multitask speaker stream); by default +1
+    for the same pairs and -1 for the diff pairs. Returns the terms and
     the leftover rows (tcl frames appended by the caller)."""
     A_d = A_d_parts[0]
     e1s, e2s, e1d, e2d, rest = _split_group_rows(e, A_s, A_d_parts)
-    c_s = cell_loss.pair_cells(e1s, e2s)
+    c_s = cell_loss.pair_cells(e1s, e2s).flatten(-3)
     if A_d.dim() == 3:  # stretch mode: full mask
-        c_d = cell_loss.pair_cells(e1d, e2d)
+        c_d = cell_loss.pair_cells(e1d, e2d).flatten(-3)
     else:               # truncate mode: diagonal only
         Tm = A_d.shape[1]
         d = e1d.shape[-1]
         c_d = cell_loss.rowwise_cells(e1d[:, :Tm].reshape(-1, d),
                                       e2d[:, :Tm].reshape(-1, d))
     dev = e.device
-    c = torch.cat([c_s.reshape(-1), c_d.reshape(-1)])
-    y = torch.cat([torch.ones(A_s.numel(), device=dev),
-                   -torch.ones(A_d.numel(), device=dev)])
+    Bs, Bd = A_s.shape[0], A_d.shape[0]
+    y_s = torch.ones(Bs, device=dev) if y_s is None else y_s
+    y_d = -torch.ones(Bd, device=dev) if y_d is None else y_d
+    c = torch.cat([c_s, c_d], dim=-1)
+    y = torch.cat([y_s.repeat_interleave(A_s.shape[1:].numel()),
+                   y_d.repeat_interleave(A_d.shape[1:].numel())])
     w = torch.cat([A_s.reshape(-1), A_d.reshape(-1)])
     return c, y, w, rest
 
@@ -255,15 +275,21 @@ def _with_tcl_frames(frames, w_frames, tcl_args, frame_bank, tcl: float,
 
 def _with_tcl_cells(loss, c, y, w, rest, tcl_terms):
     """The tcl pairs' row-wise cells (from the embedding rows ``rest``
-    after the token frames) appended to the loss terms (c, y, w)."""
+    after the token frames) appended to the loss terms (c, y, w); cells
+    along their last axis (the loss's stat axes lead)."""
     if tcl_terms is None:
         return c, y, w
     ty, wt, n_tcl = tcl_terms
     ct = loss.rowwise_cells(rest[:n_tcl], rest[n_tcl:])
-    return torch.cat([c, ct]), torch.cat([y, ty]), torch.cat([w, wt])
+    return (torch.cat([c, ct], dim=-1), torch.cat([y, ty]),
+            torch.cat([w, wt]))
 
 
-def _check_tcl(frame_bank, tcl: float):
+def _check_tcl(frame_bank, tcl: float, extra_labels: bool = False):
+    if frame_bank is not None and extra_labels:
+        raise ValueError(
+            "tcl mixing is a monotask feature (the reference never "
+            "combines it with multitask speaker labels)")
     if frame_bank is not None and not 0 < tcl < 1:
         raise ValueError(f"a frame bank needs 0 < tcl < 1, got {tcl}")
 
@@ -276,33 +302,48 @@ def _split_tcl(args, frame_bank):
     return args[:-4], args[-4:]
 
 
+def _per_frame(labels, n_rows):
+    """Per-pair labels (B,) repeated over each pair's n_rows // B frame
+    rows."""
+    return labels.repeat_interleave(n_rows // max(labels.shape[0], 1))
+
+
+def _frame_value(network, loss, x1, x2, y, w, y_spk=None):
+    """The loss of aligned frame pairs in the network's current mode
+    (``w`` weighs the batch norm only in training): the siamese loss, or
+    with speaker labels ``y_spk`` the multitask loss of both heads."""
+    if y_spk is None:
+        e1, e2 = network.forward(x1, x2, weights=w)
+        return loss(e1, e2, y, weights=w)
+    spk1, phn1, spk2, phn2 = network.forward(x1, x2, weights=w)
+    return loss(spk1, phn1, spk2, phn2, y_spk, y, weights=w)
+
+
 def make_frame_pair_steps(network, loss, optimizer):
     """Train/eval steps over aligned frame pairs (the JAX trainer's
     frame-pair step, and the gather mode's body). Both take x1, x2 (N, d),
-    y (N,) and weights w (N,) on the network's device and return the loss
-    as a 0-d device tensor; ``w`` weighs the loss and, in training, the
+    y (N,), weights w (N,) and, for the multitask family, the speaker
+    labels y_spk (N,), on the network's device, and return the loss as a
+    0-d device tensor; ``w`` weighs the loss and, in training, the
     batch-norm statistics. ``train_step`` also updates the parameters
     (``optimizer``) and batch-norm buffers in place."""
 
-    def train_step(x1, x2, y, w):
-        def evaluate():
-            e1, e2 = network.forward(x1, x2, weights=w)
-            return loss(e1, e2, y, weights=w)
-        return _train_on(network, optimizer, evaluate)
+    def train_step(x1, x2, y, w, y_spk=None):
+        return _train_on(network, optimizer, lambda: _frame_value(
+            network, loss, x1, x2, y, w, y_spk))
 
     @torch.no_grad()
-    def eval_step(x1, x2, y, w):
+    def eval_step(x1, x2, y, w, y_spk=None):
         network.eval()
-        e1, e2 = network.forward(x1, x2)
-        return loss(e1, e2, y, weights=w)
+        return _frame_value(network, loss, x1, x2, y, w, y_spk)
 
     return train_step, eval_step
 
 
 def _gather_steps(network, loss, optimizer, prepare):
     """(train_step, eval_step) of a gather mode: ``prepare(*args)`` (run
-    under ``torch.no_grad()``) assembles the frame pairs (x1, x2, y, w)
-    that the frame-pair step then takes."""
+    under ``torch.no_grad()``) assembles the frame pairs (x1, x2, y, w[,
+    y_spk]) that the frame-pair step then takes."""
     frame_train, frame_eval = make_frame_pair_steps(network, loss,
                                                     optimizer)
     prepare = torch.no_grad()(prepare)
@@ -335,11 +376,13 @@ def _matrix_steps(network, optimizer, prepare, value):
 
 
 def _split_bank_align(bank, ids1s, ids2s, ws, ids1d, ids2d, wd,
-                      align_different_words: bool, T: int):
+                      align_different_words: bool, T: int,
+                      yspk_s=None, yspk_d=None):
     """Gather-mode batch assembly: the same group aligned by DTW (paths of
     2T-1 steps), the different group by truncation or diagonal stretch
     (T steps), both gathered and flattened into frame pairs (x1, x2, y,
-    w) whose weights mask each path's padding and each pair's weight."""
+    w) whose weights mask each path's padding and each pair's weight;
+    with speaker labels, their per-frame stream y_spk appended."""
     f1s, n1s = bank.take(ids1s, T)
     f2s, n2s = bank.take(ids2s, T)
     f1d, n1d = bank.take(ids1d, T)
@@ -347,34 +390,49 @@ def _split_bank_align(bank, ids1s, ids2s, ws, ids1d, ids2d, wd,
     same = aligned_frame_pairs(f1s, f2s, n1s, n2s, True, pair_w=ws)
     diff = aligned_frame_pairs(f1d, f2d, n1d, n2d, False,
                                align_different_words, pair_w=wd)
-    return tuple(torch.cat(parts) for parts in zip(same, diff))
+    out = tuple(torch.cat(parts) for parts in zip(same, diff))
+    if yspk_s is None:
+        return out
+    return out + (torch.cat([_per_frame(yspk_s, same[0].shape[0]),
+                             _per_frame(yspk_d, diff[0].shape[0])]),)
 
 
 def make_split_pair_train_step(network, loss, optimizer, bank,
                                align_different_words: bool = False,
                                max_frames: int = None,
                                matrix_loss: Optional[bool] = None,
-                               frame_bank=None, tcl: float = 0.0):
+                               frame_bank=None, tcl: float = 0.0,
+                               extra_labels: bool = False):
     """Train/eval steps over SplitBankBatch index batches (static
     same/diff groups). Returns (train_step, eval_step); both take the
-    device tensors (ids1s, ids2s, ws, ids1d, ids2d, wd) and, with a
-    ``frame_bank`` (tcl > 0), the tcl group (i1, i2, y, w).
+    device tensors (ids1s, ids2s, ws, ids1d, ids2d, wd), then with
+    ``extra_labels`` the speaker labels (y_spk_s, y_spk_d) and with a
+    ``frame_bank`` (tcl > 0, monotask only) the tcl group (i1, i2, y, w).
     ``max_frames`` is the batch's length bucket. ``matrix_loss`` picks
     the mode (see :func:`use_matrix_loss`)."""
-    _check_tcl(frame_bank, tcl)
+    _check_tcl(frame_bank, tcl, extra_labels)
     Tb = max_frames if max_frames is not None else bank.max_len
 
-    if not use_matrix_loss(loss, matrix_loss):
+    def split_args(args):
+        """(ids1s, ids2s, ws, ids1d, ids2d, wd), (yspk_s, yspk_d) or
+        (None, None), and the tcl group or None."""
+        args, tcl_args = _split_tcl(args, frame_bank)
+        if extra_labels:
+            return args[:6], args[6:], tcl_args
+        return args, (None, None), tcl_args
+
+    if not use_matrix_loss(loss, matrix_loss, extra_labels):
         def align(*args):
-            args, tcl_args = _split_tcl(args, frame_bank)
+            args, yspk, tcl_args = split_args(args)
             return _with_tcl_pairs(
-                _split_bank_align(bank, *args, align_different_words, Tb),
+                _split_bank_align(bank, *args, align_different_words, Tb,
+                                  *yspk),
                 tcl_args, frame_bank, tcl)
 
         return _gather_steps(network, loss, optimizer, align)
 
     def matrix_parts(*args):
-        args, tcl_args = _split_tcl(args, frame_bank)
+        args, yspk, tcl_args = split_args(args)
         ids1s, ids2s, ws, ids1d, ids2d, wd = args
         f1s, n1s = bank.take(ids1s, Tb)
         f2s, n2s = bank.take(ids2s, Tb)
@@ -386,10 +444,20 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
         frames, w_frames, tcl_terms = _with_tcl_frames(
             frames, w_frames, tcl_args, frame_bank, tcl,
             A_s.sum() + A_d_parts[0].sum())
-        return frames, w_frames, A_s, A_d_parts, tcl_terms
+        return frames, w_frames, A_s, A_d_parts, tcl_terms, yspk
 
     def matrix_value(parts):
-        frames, w_frames, A_s, A_d_parts, tcl_terms = parts
+        frames, w_frames, A_s, A_d_parts, tcl_terms, (yspk_s, yspk_d) = \
+            parts
+        if extra_labels:
+            # one trunk pass; each head's cells under the same masks
+            spk, phn = network.forward_once(frames, weights=w_frames)
+            c_spk, y_spk, w, _ = _matrix_cell_terms(
+                loss.loss_spk, spk, A_s, A_d_parts, y_s=yspk_s, y_d=yspk_d)
+            c_phn, y_phn, _, _ = _matrix_cell_terms(loss.loss_phn, phn, A_s,
+                                                    A_d_parts)
+            return loss.from_cells_multi(c_spk, c_phn, y_spk, y_phn,
+                                         weights=w)
         e = network.forward_once(frames, weights=w_frames)
         A_d = A_d_parts[0]
         if A_d.dim() == 3:  # stretch mode: full diff mask
@@ -415,11 +483,12 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
 
 
 def _bank_align(bank, ids1, ids2, y_pair, pair_w,
-                align_different_words: bool, T: int):
+                align_different_words: bool, T: int, y_spk_pair=None):
     """Mixed-pair gather assembly: every pair is DTW-aligned and
     truncate/diagonal-aligned, both at L = 2T-1, and the label selects
     the path per pair. Returns flattened (x1, x2, y, w) frame pairs of
-    static shape (B * (2T-1), ...)."""
+    static shape (B * (2T-1), ...), with the per-frame speaker labels
+    appended when ``y_spk_pair`` is given."""
     f1, n1 = bank.take(ids1, T)
     f2, n2 = bank.take(ids2, T)
     T = f1.shape[1]
@@ -437,9 +506,11 @@ def _bank_align(bank, ids1, ids2, y_pair, pair_w,
     w = ((torch.arange(L, device=f1.device)[None, :] < plen[:, None])
          .float() * pair_w[:, None])
     d = x1.shape[-1]
-    yb = y_pair[:, None].expand(y_pair.shape[0], L)
-    return (x1.reshape(-1, d), x2.reshape(-1, d), yb.reshape(-1),
-            w.reshape(-1))
+    out = (x1.reshape(-1, d), x2.reshape(-1, d),
+           y_pair.repeat_interleave(L), w.reshape(-1))
+    if y_spk_pair is None:
+        return out
+    return out + (y_spk_pair.repeat_interleave(L),)
 
 
 def _bank_align_matrix(bank, ids1, ids2, y_pair, pair_w,
@@ -466,55 +537,87 @@ def _bank_align_matrix(bank, ids1, ids2, y_pair, pair_w,
 
 
 def _head_cells(cell_loss, e, B, T1, T2):
-    """Per-cell statistics of [e1; e2] rows via the loss's decomposition
-    (loss.pair_cells)."""
+    """Per-cell statistics of one head's [e1; e2] rows via the loss's
+    decomposition (loss.pair_cells)."""
     e1 = e[:B * T1].reshape(B, T1, -1)
     e2 = e[B * T1:].reshape(B, T2, -1)
     return cell_loss.pair_cells(e1, e2)
+
+
+def _bank_matrix_value(network, loss, parts, y_spk_pair=None):
+    """Embed the unique-frame batch of :func:`_bank_align_matrix` once and
+    reduce the mask-weighted cells (mixed-pair matrix mode). With
+    ``y_spk_pair`` the multitask family: one trunk pass, one cell matrix
+    per head, both reduced under the same alignment mask."""
+    frames, w_frames, A, y_cells = parts
+    B, T1, T2 = A.shape
+    if y_spk_pair is None:
+        e = network.forward_once(frames, weights=w_frames)
+        return loss.from_cells(_head_cells(loss, e, B, T1, T2), y_cells,
+                               weights=A)
+    spk, phn = network.forward_once(frames, weights=w_frames)
+    return loss.from_cells_multi(
+        _head_cells(loss.loss_spk, spk, B, T1, T2),
+        _head_cells(loss.loss_phn, phn, B, T1, T2),
+        y_spk_pair[:, None, None].expand(A.shape), y_cells, weights=A)
 
 
 def make_pair_train_step(network, loss, optimizer, bank,
                          align_different_words: bool = False,
                          max_frames: int = None,
                          matrix_loss: Optional[bool] = None,
-                         frame_bank=None, tcl: float = 0.0):
+                         frame_bank=None, tcl: float = 0.0,
+                         extra_labels: bool = False):
     """Train/eval steps over BankBatch index batches of mixed pairs:
     every pair is (id1, id2, y, pair_weight); same-word pairs (y=+1) are
     DTW-aligned, diff-word pairs (y=-1) truncate/diagonal-aligned,
     selected per pair; padded pairs weigh 0. Returns (train_step,
-    eval_step); both take (ids1, ids2, y, pair_w) and, with a
-    ``frame_bank`` (tcl > 0), the tcl group (i1, i2, y, w). In matrix
+    eval_step); both take (ids1, ids2, y, pair_w), with ``extra_labels``
+    (ids1, ids2, y, y_spk, pair_w), and with a ``frame_bank`` (tcl > 0,
+    monotask only) the tcl group (i1, i2, y, w) after them. In matrix
     mode every pair's DP runs in the path-mask kernel, in gather mode in
     the move kernel."""
-    _check_tcl(frame_bank, tcl)
+    _check_tcl(frame_bank, tcl, extra_labels)
     T = max_frames if max_frames is not None else bank.max_len
 
-    if not use_matrix_loss(loss, matrix_loss):
+    def split_args(args):
+        """(ids1, ids2, y, pair_w), the speaker labels or None, and the
+        tcl group or None."""
+        args, tcl_args = _split_tcl(args, frame_bank)
+        if extra_labels:
+            ids1, ids2, y, y_spk, pair_w = args
+            return (ids1, ids2, y, pair_w), y_spk, tcl_args
+        return args, None, tcl_args
+
+    if not use_matrix_loss(loss, matrix_loss, extra_labels):
         def gather_prepare(*args):
-            args, tcl_args = _split_tcl(args, frame_bank)
+            args, y_spk, tcl_args = split_args(args)
             return _with_tcl_pairs(
-                _bank_align(bank, *args, align_different_words, T),
+                _bank_align(bank, *args, align_different_words, T, y_spk),
                 tcl_args, frame_bank, tcl)
 
         return _gather_steps(network, loss, optimizer, gather_prepare)
 
     def matrix_prepare(*args):
-        args, tcl_args = _split_tcl(args, frame_bank)
-        frames, w_frames, A, y_cells = _bank_align_matrix(
-            bank, *args, align_different_words, T)
-        n_tok = frames.shape[0]
+        args, y_spk, tcl_args = split_args(args)
+        parts = _bank_align_matrix(bank, *args, align_different_words, T)
+        frames, w_frames, A, _ = parts
+        if tcl_args is None:
+            return parts, y_spk, None
         frames, w_frames, tcl_terms = _with_tcl_frames(
             frames, w_frames, tcl_args, frame_bank, tcl, A.sum())
-        return frames, w_frames, A, y_cells, n_tok, tcl_terms
+        return (frames, w_frames) + parts[2:], y_spk, tcl_terms
 
-    def matrix_value(parts):
-        frames, w_frames, A, y_cells, n_tok, tcl_terms = parts
+    def matrix_value(prepared):
+        parts, y_spk, tcl_terms = prepared
+        if tcl_terms is None:
+            return _bank_matrix_value(network, loss, parts, y_spk)
+        frames, w_frames, A, y_cells = parts
         B, T1, T2 = A.shape
+        n_tok = B * (T1 + T2)
         e = network.forward_once(frames, weights=w_frames)
         cells = _head_cells(loss, e[:n_tok], B, T1, T2)
-        if tcl_terms is None:
-            return loss.from_cells(cells, y_cells, weights=A)
-        c, y, w = _with_tcl_cells(loss, cells.reshape(-1),
+        c, y, w = _with_tcl_cells(loss, cells.flatten(-3),
                                   y_cells.reshape(-1), A.reshape(-1),
                                   e[n_tok:], tcl_terms)
         return loss.from_cells(c, y, weights=w)
@@ -585,54 +688,53 @@ def _sampled_prepare(bank, sampled, align_different_words: bool,
                      matrix: bool):
     """The half of a sampled step that does not depend on the parameters
     (run under ``torch.no_grad()``): the mixed pairs ``sampled`` = (ids1,
-    ids2, y, ...) of a :meth:`DevicePairSampler.sample` draw, each of
+    ids2, y[, y_spk]) of a :meth:`DevicePairSampler.sample` draw, each of
     weight 1, aligned at the bank's full length: in matrix mode their
     path masks (``dtw_path``), in gather mode their frame pairs
-    (``dtw_moves`` and the walk). Returns (mode, parts)."""
+    (``dtw_moves`` and the walk). Returns (mode, parts, y_spk or None)."""
     ids1, ids2, y = sampled[:3]
+    y_spk = sampled[3] if len(sampled) > 3 else None
     w = torch.ones_like(y)
     if matrix:
         return "matrix", _bank_align_matrix(bank, ids1, ids2, y, w,
                                             align_different_words,
-                                            bank.max_len)
+                                            bank.max_len), y_spk
     return "gather", _bank_align(bank, ids1, ids2, y, w,
-                                 align_different_words, bank.max_len)
+                                 align_different_words, bank.max_len,
+                                 y_spk), None
 
 
 def _sampled_apply(network, loss, prep) -> torch.Tensor:
     """The loss of a prepared sampled batch (the parameter-dependent half
     of the sampled step), in the network's current mode."""
-    mode, parts = prep
+    mode, parts, y_spk = prep
     if mode == "matrix":
-        frames, w_frames, A, y_cells = parts
-        B, T1, T2 = A.shape
-        e = network.forward_once(frames, weights=w_frames)
-        return loss.from_cells(_head_cells(loss, e, B, T1, T2), y_cells,
-                               weights=A)
-    x1, x2, y, w = parts
-    e1, e2 = network.forward(x1, x2, weights=w)
-    return loss(e1, e2, y, weights=w)
+        return _bank_matrix_value(network, loss, parts, y_spk)
+    return _frame_value(network, loss, *parts)
 
 
 def make_sampled_train_step(network, loss, optimizer, bank, sampler,
                             align_different_words: bool = False,
                             steps_per_call: int = 1,
-                            matrix_loss: Optional[bool] = None):
+                            matrix_loss: Optional[bool] = None,
+                            extra_labels: bool = False):
     """The fully on-device train call: ``train_call(generator)`` runs
     ``steps_per_call`` steps, each drawing a fresh pair batch from
     ``sampler`` with ``generator`` (on the card), gathering its tokens
     from ``bank``, aligning them and updating the network in place, and
     returns the mean loss as a 0-d device tensor. Nothing is read back
     to the host inside a call (for optimizers other than LBFGS, whose
-    linesearch reads its scalars)."""
+    linesearch reads its scalars). ``extra_labels`` trains the multitask
+    family: the sampler also draws the speaker labels."""
     if steps_per_call < 1:
         raise ValueError("steps_per_call must be >= 1")
-    matrix = use_matrix_loss(loss, matrix_loss)
+    matrix = use_matrix_loss(loss, matrix_loss, extra_labels)
 
     @torch.no_grad()
     def prepare(generator):
-        return _sampled_prepare(bank, sampler.sample(generator),
-                                align_different_words, matrix)
+        return _sampled_prepare(
+            bank, sampler.sample(generator, with_speakers=extra_labels),
+            align_different_words, matrix)
 
     def train_call(generator: torch.Generator) -> torch.Tensor:
         values = []
@@ -649,22 +751,23 @@ def make_sampled_train_step(network, loss, optimizer, bank, sampler,
 def make_sampled_eval_step(network, loss, bank, sampler,
                            align_different_words: bool = False,
                            matrix_loss: Optional[bool] = None,
-                           steps_per_call: int = 1):
+                           steps_per_call: int = 1,
+                           extra_labels: bool = False):
     """Eval twin of :func:`make_sampled_train_step`: ``eval_call(
     generator)`` samples, aligns and evaluates ``steps_per_call`` fresh
     batches and returns their (steps_per_call,) losses as a device
     tensor."""
     if steps_per_call < 1:
         raise ValueError("steps_per_call must be >= 1")
-    matrix = use_matrix_loss(loss, matrix_loss)
+    matrix = use_matrix_loss(loss, matrix_loss, extra_labels)
 
     @torch.no_grad()
     def eval_call(generator: torch.Generator) -> torch.Tensor:
         network.eval()
         return torch.stack([
             _sampled_apply(network, loss, _sampled_prepare(
-                bank, sampler.sample(generator), align_different_words,
-                matrix))
+                bank, sampler.sample(generator, with_speakers=extra_labels),
+                align_different_words, matrix))
             for _ in range(steps_per_call)])
 
     return eval_call

@@ -1,7 +1,8 @@
 """Trainers: the epoch loop and early stopping around the train step.
 
-The counterpart of ``abnet3_tpu/trainer.py`` for ``TrainerSiamese`` on the
-batches of the pair-file loaders of :mod:`abnet3_torch.dataloader`: split
+The counterpart of ``abnet3_tpu/trainer.py`` for ``TrainerSiamese`` and
+``TrainerSiameseMultitask`` on the batches of the pair-file loaders of
+:mod:`abnet3_torch.dataloader`: split
 and mixed bank batches, frame-table index batches and aligned frame-pair
 batches (device and host backends), and on ``OnDeviceSamplerDataLoader``,
 whose pairs the sampled steps draw on the card. It runs an epoch-0 eval
@@ -41,8 +42,8 @@ from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import (jax_param_slots, load_jax_numpy,
                                   to_jax_numpy)
 
-__all__ = ["TrainerBuilder", "TrainerSiamese", "build_optimizer",
-           "MetricsWriter"]
+__all__ = ["TrainerBuilder", "TrainerSiamese", "TrainerSiameseMultitask",
+           "build_optimizer", "MetricsWriter"]
 
 
 def build_optimizer(optimizer_type: str, params, lr: float,
@@ -97,13 +98,16 @@ def _layout(node) -> str:
     return f"array{tuple(np.shape(node))}"
 
 
-def _saved_slot(tree, layer, key, name, shape) -> np.ndarray:
-    """One parameter's array of a saved params-shaped tree, checked
-    against ``shape``."""
-    v = np.array(tree[layer][key], np.float32)
+def _saved_slot(tree, path, key, name, shape) -> np.ndarray:
+    """One parameter's array of a saved params-shaped tree (``path`` the
+    dict keys down to its layer), checked against ``shape``."""
+    node = tree
+    for k in path:
+        node = node[k]
+    v = np.array(node[key], np.float32)
     if v.shape != tuple(shape):
-        raise ValueError(f"optimizer state {name} of {layer}/{key}: shape "
-                         f"{v.shape}, the network's {tuple(shape)}")
+        raise ValueError(f"optimizer state {name} of {'/'.join(path)}/{key}:"
+                         f" shape {v.shape}, the network's {tuple(shape)}")
     return v
 
 
@@ -238,9 +242,12 @@ class TrainerBuilder:
         like the JAX params (zeros where a parameter has none yet, as in
         optax's initial state)."""
         tree = {}
-        for layer, key, p in jax_param_slots(self.network):
+        for path, key, p in jax_param_slots(self.network):
             v = self.optimizer.state.get(p, {}).get(name)
-            tree.setdefault(layer, {})[key] = (
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[key] = (
                 np.zeros(tuple(p.shape), np.float32) if v is None
                 else v.detach().cpu().numpy().copy())
         return tree
@@ -338,13 +345,13 @@ class TrainerBuilder:
             slots = {"exp_avg": saved[0][1], "exp_avg_sq": saved[0][2]}
             steps = float(saved[0][0])
         self.optimizer.state.clear()
-        for layer, key, p in jax_param_slots(self.network):
+        for path, key, p in jax_param_slots(self.network):
             st = {}
             if steps is not None:
                 st["step"] = torch.tensor(steps, dtype=torch.float32)
             for name, tree in slots.items():
                 st[name] = torch.from_numpy(
-                    _saved_slot(tree, layer, key, name, p.shape)
+                    _saved_slot(tree, path, key, name, p.shape)
                 ).to(p.device)
             self.optimizer.state[p] = st
 
@@ -354,11 +361,11 @@ class TrainerBuilder:
         opt = self.optimizer
         lbfgs, _, (lr, value, grad, info) = saved
         slots = dict(zip(_LBFGS_SLOTS, lbfgs[1:5]), grad=grad)
-        for layer, key, p in jax_param_slots(self.network):
+        for path, key, p in jax_param_slots(self.network):
             for name, tree in slots.items():
                 dst = opt.state[p][name]
                 dst.copy_(torch.from_numpy(_saved_slot(
-                    tree, layer, key, name, dst.shape)))
+                    tree, path, key, name, dst.shape)))
         opt.weights_memory.copy_(torch.from_numpy(
             np.asarray(lbfgs[5], np.float32)))
         c = opt._np
@@ -475,6 +482,9 @@ class TrainerSiamese(TrainerBuilder):
     through the step of their kind, and aligned frame-pair batches
     (:class:`Batch`) through the frame-pair step as they come."""
 
+    #: whether the batches carry the multitask speaker labels
+    _BANK_EXTRA_LABELS = False
+
     def _steps_for(self, b):
         """(train_step, eval_step) of an index batch, made once per kind
         and length bucket (split or mixed bank batches) or mode
@@ -503,7 +513,7 @@ class TrainerSiamese(TrainerBuilder):
                         dl, "align_different_words", False),
                     matrix_loss=self.matrix_loss,
                     frame_bank=dl.frame_bank if tcl > 0 else None,
-                    tcl=tcl)
+                    tcl=tcl, extra_labels=self._BANK_EXTRA_LABELS)
         return self._step_fns[key]
 
     @property
@@ -531,14 +541,25 @@ class TrainerSiamese(TrainerBuilder):
                      for a in arrays)
 
     def _args_for(self, b):
-        """The step arguments of an index batch, on the trainer's
-        device."""
+        """The step arguments of an index batch, on the trainer's device,
+        in the JAX package's order: (ids1s, ids2s, ws, ids1d, ids2d, wd[,
+        y_spk_s, y_spk_d]), (ids1, ids2, y[, y_spk], pair_w) or (i1, i2,
+        y, w), then the tcl group."""
+        extra = self._BANK_EXTRA_LABELS
         if isinstance(b, SplitBankBatch):
             args = (b.ids1s, b.ids2s, b.ws, b.ids1d, b.ids2d, b.wd)
+            if extra:
+                assert b.y_spk_s is not None, \
+                    "multitask bank training needs speaker labels"
+                args += (b.y_spk_s, b.y_spk_d)
         elif isinstance(b, FrameBankBatch):
             w = b.weights if b.weights is not None else \
                 np.ones(len(b.y), np.float32)
             args = (b.i1, b.i2, b.y, w)
+        elif extra:
+            assert b.y_spk is not None, \
+                "multitask bank training needs speaker labels"
+            args = (b.ids1, b.ids2, b.y, b.y_spk, b.pair_w)
         else:
             args = (b.ids1, b.ids2, b.y, b.pair_w)
         if getattr(b, "tcl_i1", None) is not None:
@@ -589,7 +610,12 @@ class TrainerSiamese(TrainerBuilder):
                 self.network, self.loss, self.optimizer)
         train_step, eval_step = self._step_fns["frames"]
         step = train_step if do_training else eval_step
-        return step(*(t.to(self.device) for t in b))
+        args = (b.x1, b.x2, b.y, b.weights)
+        if self._BANK_EXTRA_LABELS:
+            assert b.y_spk is not None, ("multitask training needs speaker "
+                                         "labels (MultiTaskDataLoader)")
+            args += (b.y_spk,)
+        return step(*(t.to(self.device) for t in args))
 
     def give_batch_to_network(self, batch, do_training):
         """Run or buffer one batch; returns the per-batch losses of the
@@ -636,14 +662,16 @@ class TrainerSiamese(TrainerBuilder):
             dl = self.dataloader
             bank, sampler = dl.bank_for(train_mode), dl.sampler_for(train_mode)
             k = self._bank_steps_per_call
+            extra = self._BANK_EXTRA_LABELS
             self._step_fns[key] = (
                 make_sampled_train_step(self.network, self.loss,
                                         self.optimizer, bank, sampler,
                                         steps_per_call=k,
-                                        matrix_loss=self.matrix_loss),
+                                        matrix_loss=self.matrix_loss,
+                                        extra_labels=extra),
                 make_sampled_eval_step(self.network, self.loss, bank,
                                        sampler, matrix_loss=self.matrix_loss,
-                                       steps_per_call=k))
+                                       steps_per_call=k, extra_labels=extra))
         return self._step_fns[key]
 
     def _optimize_model_sampled(self, do_training):
@@ -709,6 +737,16 @@ class TrainerSiamese(TrainerBuilder):
         self.statistics_training = dict(
             getattr(self.dataloader, "statistics_training", {}))
         return self.dev_losses[-1]
+
+
+class TrainerSiameseMultitask(TrainerSiamese):
+    """Multitask trainer: the weighted speaker + phone loss of a
+    ``SiameseMultitaskNetwork`` (reference trainer.py:259-279) on the
+    batches of ``MultiTaskDataLoader`` (every backend) or of
+    ``OnDeviceSamplerDataLoader``, whose sampled steps then draw the
+    speaker labels too."""
+
+    _BANK_EXTRA_LABELS = True
 
 
 def _on_stream(iterator, stream):

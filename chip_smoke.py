@@ -95,7 +95,22 @@ Phases, each printing JSON lines:
     weights (rtol 1e-4); 200 batches drawn on the card pass the
     chi-square test per configuration, and one seed draws one batch. It
     prints ms a step by events within a call of 8 and host ms a step;
-13. optimizers: ``adagrad``, ``RMSprop`` and ``LBFGS`` with optax's
+13. multitask_path: the multitask twin of the flagship
+    (``SiameseMultitaskNetwork``: a 280->500->500 trunk and two
+    500->500->100 heads, ``weighted_loss_multi(0.5, coscos2, coscos2)``,
+    adadelta 0.1) through ``TrainerSiameseMultitask``: (a)
+    ``MultiTaskDataLoader``'s split bank batches (batch 64, 20 a pass,
+    ``steps_per_call`` 8, 2 epochs, matrix mode), (b) its device backend
+    (1 epoch of 4 batches), (c) the sampled path's loader drawing speaker
+    labels too (1 epoch of 16 steps, K = 8), (d) both heads through
+    ``EmbedderSiameseMultitask``'s packed chunks. Finite losses;
+    ``dtw_path`` and ``dtw_moves`` launched exactly as the phase predicts
+    from the pair counts before it runs, ``dtw_costs`` 0; one split step
+    on the card equal to the CPU's (loss rtol 1e-4, parameters atol
+    1e-5); no host sync inside a sampled call; each head's embedding
+    equal to ``forward_once``'s (atol 1e-5). It prints host and event ms
+    a step of each run;
+14. optimizers: ``adagrad``, ``RMSprop`` and ``LBFGS`` with optax's
     semantics (``abnet3_torch/optim.py``), 3 steps each of the flagship
     split bank matrix step at full width: finite losses, the first step's
     loss equal to the CPU's (rtol 1e-4) and the parameters after it
@@ -103,7 +118,7 @@ Phases, each printing JSON lines:
     linesearch evaluation), a ``.ckpt`` that reloads into an equal
     optimizer state; host ms a step and LBFGS's linesearch evaluations a
     step;
-14. eval_path: the trained network embeds the corpus through
+15. eval_path: the trained network embeds the corpus through
     ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
     inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from
     the embeddings goes through ``distance_matrix(device_out=True)``
@@ -121,18 +136,19 @@ Phases, each printing JSON lines:
     with the card has no h5py, so ``generate()``/``embed()``/
     ``evaluate()``'s file layer is held against the JAX package by the
     CPU tests;
-15. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+16. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
-16. timing: for each of the four kernels ``device_ms`` (the kernel's own
+17. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-17. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
-    steps (the device loader's batch building included), over one
+18. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
+    steps (the device loader's batch building included), over 10
+    multitask split steps, over one
     sampled train call of 8 steps, over one ABX tile of 1,024 rows and
     over one device scoring pass (across): device time by group,
     launches and the busy share.
@@ -871,14 +887,15 @@ def phase_gather_path(main_trainer, main_loader):
     # printed, not required: the card's float32 bmm sums the distances in
     # another order than the CPU's, so a near-tie may flip a move
     paths_equal = all(torch.equal(a.cpu(), b)
-                      for a, b in zip(b_card, b_cpu))
+                      for a, b in zip(b_card[:4], b_cpu[:4]))
     # the move kernel against its plain version on that batch's own card
     # distances (its same pairs, zero-padded at the loader's buckets):
     # exactly equal
     feats = loader._collect_pair_feats(
         grouped, loader.get_token_feats(grouped), "same")
     f1, f2 = (torch.from_numpy(_pad_tokens(
-        [p[k] for p in feats], pow2_bucket(max(len(p[k]) for p in feats)))[0])
+        [p[0][k] for p in feats],
+        pow2_bucket(max(len(p[0][k]) for p in feats)))[0])
         .cuda() for k in (0, 1))
     dist = pairwise_angular_distance(f1, f2)
     batch_moves_diff = int((dtw_moves_cuda(dist)
@@ -1287,7 +1304,7 @@ def phase_loaders_path(features, pairs, tokens, main_loader):
                 **card_cpu_step(
                     trainer.network,
                     lambda n, loss, opt, dev: make_frame_pair_steps(
-                        n, loss, opt)[0], list(b)))
+                        n, loss, opt)[0], list(b[:4])))
     lines.append(line)
 
     # the host backend's batch (host DTW) beside its device twin: the
@@ -1326,7 +1343,7 @@ def phase_loaders_path(features, pairs, tokens, main_loader):
     line.update(card_cpu_step(
         trainer.network,
         lambda n, loss, opt, dev: make_frame_pair_steps(n, loss, opt)[0],
-        list(hb)))
+        list(hb[:4])))
     lines.append(line)
 
     for line in lines:
@@ -1541,7 +1558,239 @@ def phase_sampled_path(features, classes, spk):
     return ({"dtw_path": launches["dtw_path"],
              "dtw_moves": g_launches["dtw_moves"],
              "dtw_costs": launches["dtw_costs"] + g_launches["dtw_costs"]},
-            lambda: train_call(gen))
+            lambda: train_call(gen), loader)
+
+
+def multitask_network(output_path=None, device=None):
+    """The multitask twin of the flagship: a 280->500->500 trunk and two
+    500->500->100 heads (each head's path 280->500->500->500->100, as the
+    flagship tower), sigmoid, no dropout."""
+    from abnet3_torch.models.siamese import SiameseMultitaskNetwork
+    return SiameseMultitaskNetwork(
+        input_dim=280, num_hidden_layers_shared=1, num_hidden_layers_spk=1,
+        num_hidden_layers_phn=1, hidden_dim=500, output_dim=100,
+        p_dropout=0.0, activation_layer="sigmoid", type_init="xavier_uni",
+        output_path=output_path, device=device)
+
+
+def multitask_loss():
+    from abnet3_torch.loss import coscos2, weighted_loss_multi
+    return weighted_loss_multi(weight=0.5, loss_spk=coscos2(avg=True),
+                               loss_phn=coscos2(avg=True))
+
+
+def multitask_trainer(loader, name, num_epochs):
+    """A TrainerSiameseMultitask of the multitask network (random weights
+    from seed 0, adadelta lr 0.1) over ``loader``."""
+    from abnet3_torch.trainer import TrainerSiameseMultitask
+    return TrainerSiameseMultitask(
+        network=multitask_network(os.path.join(OUT, f"{name}_network")),
+        loss=multitask_loss(), dataloader=loader, optimizer_type="adadelta",
+        lr=0.1, num_epochs=num_epochs, patience=30, seed=0,
+        log_dir=os.path.join(OUT, f"{name}_logs"))
+
+
+def split_batches_per_pass(loader, mode):
+    """The split bank batches of one pass (``_split_bank_batches``): the
+    larger group's batch count at the split's Bs/Bd, at most
+    ``num_max_minibatches``; it depends on the pair counts alone."""
+    ys = loader._bank_pairs[mode][2]
+    n_s = int((ys > 0).sum())
+    n_d = len(ys) - n_s
+    bs = loader.batch_size
+    Bs = max(1, round(bs * n_s / max(n_s + n_d, 1))) if n_s else 1
+    Bd = max(bs - Bs, 1) if n_d else 1
+    n = max(-(-n_s // Bs) if n_s else 0, -(-n_d // Bd) if n_d else 0, 1)
+    return min(n, loader.num_max_minibatches)
+
+
+def device_batches_per_pass(loader, mode):
+    """The device backend's batches of one pass; None unless every slice
+    of ``batch_size`` pairs holds a same pair (then each batch launches
+    the move kernel once)."""
+    pairs = loader.pairs[mode]
+    bs = loader.batch_size
+    slices = [pairs[i:i + bs] for i in range(0, len(pairs), bs)]
+    if not all(any(p[6] == "same" for p in sl) for sl in slices):
+        return None
+    return min(len(slices), loader.num_max_minibatches)
+
+
+def run_counted(trainer, predicted, name):
+    """Train with every launch count set to 0 first; fails unless the
+    losses are finite and the counts equal ``predicted``. Returns
+    (launches, seconds)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    want = dict({"dtw_path": 0, "dtw_path_stats": 0, "dtw_moves": 0,
+                 "dtw_costs": 0}, **predicted)
+    losses = trainer.train_losses + trainer.dev_losses
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"multitask {name}: non-finite losses {losses}")
+    if launches != want:
+        raise AssertionError(f"multitask {name}: launches {launches}, "
+                             f"predicted {want}")
+    return launches, seconds
+
+
+def phase_multitask_path(features, pairs, spk, sampled_loader):
+    """The multitask family at the flagship width (ROADMAP A8):
+    ``SiameseMultitaskNetwork`` with ``weighted_loss_multi(0.5, coscos2,
+    coscos2)`` and adadelta 0.1 through ``TrainerSiameseMultitask`` on
+    (a) ``MultiTaskDataLoader``'s split bank batches (batch 64, 20 a
+    pass, K = 8, 2 epochs, matrix mode: ``dtw_path``), (b) its device
+    backend (1 epoch of 4 batches: ``dtw_moves`` and the walk), (c) the
+    on-device sampler's sampled steps with speaker labels (1 epoch of 16
+    steps, K = 8, matrix mode: ``dtw_path``), then (d)
+    ``EmbedderSiameseMultitask``'s packed chunks, both heads. Checks:
+    finite losses; each kernel's launches exactly as predicted before the
+    runs (``dtw_costs`` 0); one split step on the card equal to the CPU's
+    (loss rtol 1e-4, parameters atol 1e-5, weights carried by
+    ``to_jax_numpy``/``load_jax_numpy``); no host sync inside a sampled
+    call; each head's embedding equal to ``forward_once``'s (atol 1e-5).
+    Returns ({kernel: launches}, a closure running one multitask split
+    step)."""
+    from abnet3_torch.dataloader import MultiTaskDataLoader
+    from abnet3_torch.embedder import EmbedderSiameseMultitask
+    from abnet3_torch.parallel import make_split_pair_train_step
+    from abnet3_torch.trainer import build_optimizer
+    from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+    t_phase = time.perf_counter()
+
+    # (a) split bank batches, matrix mode
+    bank_loader = MultiTaskDataLoader(
+        None, None, fid2spk_file=spk, batch_size=64, num_max_minibatches=20,
+        seed=0, align_backend="bank", steps_per_call=8)
+    bank_loader.features = features
+    bank_loader.pairs = pairs
+    bank_loader.load_data()
+    steps_a = 3 * sum(split_batches_per_pass(bank_loader, m)
+                      for m in ("train", "dev"))
+    trainer = multitask_trainer(bank_loader, "multitask", 2)
+    launches_a, seconds_a = run_counted(trainer, {"dtw_path": steps_a},
+                                        "bank")
+    line = {"phase": "multitask_path", "run": "bank_matrix",
+            "steps": steps_a, "launches": launches_a,
+            "train_losses": trainer.train_losses,
+            "dev_losses": trainer.dev_losses,
+            "dev_loss_fell": trainer.dev_losses[2] < trainer.dev_losses[0],
+            "seconds": seconds_a,
+            "host_ms_per_step": seconds_a / steps_a * 1e3}
+    # one split step on the card and on the CPU, same weights and batch
+    batch = next(bank_loader.batch_iterator(train_mode=False))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        net = multitask_network(device=None if dev == "cuda" else "cpu")
+        load_jax_numpy(net, *to_jax_numpy(trainer.network))
+        opt = build_optimizer("adadelta", net.parameters(), 0.1)
+        step, _ = make_split_pair_train_step(
+            net, multitask_loss(), opt,
+            bank_loader.token_bank if dev == "cuda"
+            else cpu_bank(bank_loader.token_bank),
+            max_frames=batch.bucket, extra_labels=True)
+        args = [t.to(dev) for t in trainer._args_for(batch)]
+        out[dev] = (float(step(*args)), tree_leaves(list(to_jax_numpy(net))))
+    if not math.isclose(out["cuda"][0], out["cpu"][0], rel_tol=1e-4):
+        raise AssertionError(f"multitask step: card {out['cuda'][0]} vs "
+                             f"CPU {out['cpu'][0]}")
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    if diff > 1e-5:
+        raise AssertionError(f"multitask step: params differ by {diff}")
+    # CUDA events over the split step at the pass's top bucket
+    top = max(bank_loader.batch_iterator(train_mode=True),
+              key=lambda b: b.bucket)
+    step, _ = trainer._steps_for(top)
+    top_args = trainer._args_for(top)
+
+    def run_step():
+        return step(*top_args)
+    line.update(step_card=out["cuda"][0], step_cpu=out["cpu"][0],
+                params_max_abs_diff=diff, bucket=top.bucket,
+                ms_per_step_events=cuda_time_ms(run_step, reps=10,
+                                                warmup=2))
+    emit(line)
+
+    # (b) the device backend: move kernel and walk
+    dev_loader = MultiTaskDataLoader(
+        None, None, fid2spk_file=spk, batch_size=64, num_max_minibatches=4,
+        seed=0, align_backend="device")
+    dev_loader.features = features
+    dev_loader.pairs = pairs
+    per_pass = [device_batches_per_pass(dev_loader, m)
+                for m in ("train", "dev")]
+    if None in per_pass:
+        raise AssertionError("a device batch without a same pair: the "
+                             "move-kernel launches cannot be predicted")
+    steps_b = 2 * sum(per_pass)
+    g_trainer = multitask_trainer(dev_loader, "multitask_device", 1)
+    launches_b, seconds_b = run_counted(g_trainer, {"dtw_moves": steps_b},
+                                        "device")
+    batch_b = next(dev_loader.batch_iterator(train_mode=True))
+    emit({"phase": "multitask_path", "run": "device_gather",
+          "steps": steps_b, "launches": launches_b,
+          "train_losses": g_trainer.train_losses,
+          "dev_losses": g_trainer.dev_losses, "seconds": seconds_b,
+          "host_ms_per_step": seconds_b / steps_b * 1e3,
+          "ms_per_step_events": cuda_time_ms(
+              lambda: g_trainer._frame_pair_step(batch_b, True), reps=5,
+              warmup=1),
+          "statistics": dict(dev_loader.statistics_training)})
+
+    # (c) the on-device sampler with speaker labels, matrix mode
+    K = sampled_loader.steps_per_call
+    n = sampled_loader.num_max_minibatches
+    s_trainer = multitask_trainer(sampled_loader, "multitask_sampled", 1)
+    steps_c = K * 2 * (max(round(n / K), 1)
+                       + max(round(max(n // 10, 1) / K), 1))
+    launches_c, seconds_c = run_counted(s_trainer, {"dtw_path": steps_c},
+                                        "sampled")
+    train_call, eval_call = s_trainer._sampled_steps(True)
+    gen = torch.Generator(device="cuda")
+    sync_free = sync_free_calls(train_call, eval_call, gen, 4242)
+    gen.manual_seed(4243)
+    call_ms = cuda_time_ms(lambda: train_call(gen), reps=3, warmup=1)
+    emit({"phase": "multitask_path", "run": "sampled_matrix",
+          "steps": steps_c, "launches": launches_c,
+          "train_losses": s_trainer.train_losses,
+          "dev_losses": s_trainer.dev_losses, "seconds": seconds_c,
+          "host_ms_per_step": seconds_c / steps_c * 1e3,
+          "ms_per_step_events": call_ms / K, "sync_free_call": sync_free})
+
+    # (d) both heads through the embedder's packed chunks
+    net = trainer.network
+    names = sorted(features.features, key=lambda f: int(f[1:]))
+    feats = [features.features[f] for f in names]
+    emb = EmbedderSiameseMultitask(network=net, batch_size=5000)
+    t0 = time.perf_counter()
+    heads = emb._embed_corpus(emb._forward_fn(), feats, n_outputs=2)
+    embed_s = time.perf_counter() - t0
+    net.eval()
+    head_diff = 0.0
+    with torch.no_grad():
+        for i, f in enumerate(feats):
+            want = net.forward_once(torch.from_numpy(
+                np.asarray(f, np.float32)).cuda())
+            for h in range(2):
+                head_diff = max(head_diff, float(np.abs(
+                    heads[h][i] - want[h].cpu().numpy()).max()))
+    net.train()
+    if head_diff > 1e-5:
+        raise AssertionError(f"embedder heads differ from forward_once by "
+                             f"{head_diff}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "multitask_path", "embed_s": embed_s,
+          "frames": int(sum(len(f) for f in feats)),
+          "heads_max_abs_diff": head_diff, "seconds": seconds})
+    return ({"dtw_path": launches_a["dtw_path"] + launches_c["dtw_path"],
+             "dtw_moves": launches_b["dtw_moves"],
+             "dtw_costs": (launches_a["dtw_costs"] + launches_b["dtw_costs"]
+                           + launches_c["dtw_costs"])}, run_step)
 
 
 def tree_leaves(node):
@@ -2214,19 +2463,24 @@ def main():
     g_trainer, g_loader, moves_launches, costs_gather = phase_gather_path(
         trainer, loader)
     by_path = phase_loaders_path(features, pairs, tokens, loader)
-    sampled, sampled_run = phase_sampled_path(features, classes, spk)
+    sampled, sampled_run, sampled_loader = phase_sampled_path(
+        features, classes, spk)
+    multitask, multitask_run = phase_multitask_path(features, pairs, spk,
+                                                    sampled_loader)
     opt_launches = phase_optimizers(trainer, loader)
     bank, stats_launches, costs_eval, score_run = phase_eval_path(
         trainer.network, loader.features)
     # no path runs the cost kernel: each path phase reads its count
     costs_launches = (costs_main + costs_gather + costs_eval
                       + sum(by_path["dtw_costs"].values())
-                      + sampled["dtw_costs"])
+                      + sampled["dtw_costs"] + multitask["dtw_costs"])
     path_by_path = {"main_path": launches, **by_path["dtw_path"],
                     "sampled_path": sampled["dtw_path"],
+                    "multitask_path": multitask["dtw_path"],
                     "optimizers": opt_launches}
     moves_by_path = {"gather_path": moves_launches, **by_path["dtw_moves"],
-                     "sampled_gather": sampled["dtw_moves"]}
+                     "sampled_gather": sampled["dtw_moves"],
+                     "multitask_path": multitask["dtw_moves"]}
     if costs_launches != 0:
         raise AssertionError(f"the cost kernel ran {costs_launches} times "
                              "on the paths, which do not use it")
@@ -2235,6 +2489,7 @@ def main():
     fwd_rows, _ = phase_timing_gather(g_trainer, g_loader)
     stats_row = phase_timing_stats(bank)
     phase_profile("train_step", run_step, reps=10)
+    phase_profile("multitask_step", multitask_run, reps=10)
     phase_profile("gather_step", gather_steps_run(g_trainer, g_loader),
                   reps=10)
     phase_profile("sampled_call", sampled_run, reps=1, per_row=8,

@@ -403,6 +403,104 @@ def test_mixed_bank_step_on_the_card_matches_the_cpu(cuda_device, matrix):
         assert abs(x - y_) <= 1e-4 * abs(y_)
 
 
+def _split_step_card_cpu(cuda_device, make_nets, loss, extra_labels,
+                         matrix, kernel, align_different_words=False):
+    """Eval and train losses of one split bank step on the card and on
+    the CPU from the same weights and batch, and the card's launches of
+    ``kernel`` (two: the eval step and the train step)."""
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.parallel import make_split_pair_train_step
+    from abnet3_torch.trainer import build_optimizer
+    feats = _token_feats(40, 12, seed=21)
+    g = torch.Generator().manual_seed(22)
+    ids = torch.randperm(40, generator=g)
+    Bs, Bd = 10, 8
+    ws, wd = torch.ones(Bs), torch.ones(Bd)
+    ws[-1] = wd[-1] = 0.0
+    args = (ids[:Bs], ids[Bs:2 * Bs], ws, ids[2 * Bs:2 * Bs + Bd],
+            ids[2 * Bs + Bd:2 * Bs + 2 * Bd], wd)
+    if extra_labels:
+        args += (torch.where(torch.rand(Bs, generator=g) < 0.5, 1.0, -1.0),
+                 torch.where(torch.rand(Bd, generator=g) < 0.5, 1.0, -1.0))
+    out, launches = {}, None
+    for dev, net in zip((cuda_device, "cpu"), make_nets(cuda_device)):
+        opt = build_optimizer("adadelta", net.parameters(), 0.1)
+        step, ev = make_split_pair_train_step(
+            net, loss, opt, TokenBank(feats, device=dev), max_frames=64,
+            matrix_loss=matrix, extra_labels=extra_labels,
+            align_different_words=align_different_words)
+        dargs = [t.to(dev) for t in args]
+        before = kernel.launches
+        out[str(dev)] = (float(ev(*dargs)), float(step(*dargs)))
+        if dev != "cpu":
+            launches = kernel.launches - before
+    return out[str(cuda_device)], out["cpu"], launches
+
+
+def _multitask_nets(device):
+    """A multitask network on the card and a CPU one with its weights."""
+    from abnet3_torch.models.siamese import SiameseMultitaskNetwork
+    from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+    kw = dict(input_dim=12, num_hidden_layers_shared=1,
+              num_hidden_layers_spk=1, num_hidden_layers_phn=1,
+              hidden_dim=32, output_dim=8, p_dropout=0.0,
+              activation_layer="sigmoid", batch_norm=True)
+    card = SiameseMultitaskNetwork(device=device, **kw)
+    card.ensure_init(0)
+    cpu = SiameseMultitaskNetwork(device="cpu", **kw)
+    load_jax_numpy(cpu, *to_jax_numpy(card))
+    return card, cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix", [True, False])
+def test_multitask_split_step_on_the_card_matches_the_cpu(cuda_device,
+                                                          matrix):
+    """The multitask split step (speaker labels, weighted_loss_multi of
+    coscos2 and cosmargin) on the card against the CPU path: eval and
+    train losses within rtol 1e-4, one path-kernel (matrix mode) or
+    move-kernel (gather mode) launch a step."""
+    from abnet3_torch.loss import coscos2, cosmargin, weighted_loss_multi
+    loss = weighted_loss_multi(weight=0.5, loss_spk=coscos2(),
+                               loss_phn=cosmargin(margin=0.4))
+    kernel = cuda_dtw.dtw_path_cuda if matrix else cuda_dtw.dtw_moves_cuda
+    card, cpu, launches = _split_step_card_cpu(
+        cuda_device, _multitask_nets, loss, True, matrix, kernel)
+    assert launches == 2
+    for x, y_ in zip(card, cpu):
+        assert abs(x - y_) <= 1e-4 * abs(y_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align_different_words", [False, True])
+def test_kl_matrix_step_on_the_card_matches_the_cpu(cuda_device,
+                                                    align_different_words):
+    """Single-task KLLoss on a softmax SiameseNetwork through the split
+    step in matrix mode (cells with a stat axis), truncate and stretch,
+    on the card against the CPU: losses within rtol 1e-4, one path-kernel
+    launch a step."""
+    from abnet3_torch.loss import KLLoss
+    from abnet3_torch.models.siamese import SiameseNetwork
+    from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+
+    def nets(device):
+        kw = dict(input_dim=12, num_hidden_layers=1, hidden_dim=32,
+                  output_dim=8, p_dropout=0.0, activation_layer="softmax",
+                  batch_norm=True)
+        card = SiameseNetwork(device=device, **kw)
+        card.ensure_init(0)
+        cpu = SiameseNetwork(device="cpu", **kw)
+        load_jax_numpy(cpu, *to_jax_numpy(card))
+        return card, cpu
+
+    card, cpu, launches = _split_step_card_cpu(
+        cuda_device, nets, KLLoss(margin=1.0), False, True,
+        cuda_dtw.dtw_path_cuda, align_different_words)
+    assert launches == 2
+    for x, y_ in zip(card, cpu):
+        assert abs(x - y_) <= 1e-4 * abs(y_)
+
+
 @pytest.mark.cuda
 def test_load_all_frames_on_the_card_matches_the_cpu(cuda_device):
     """``FramesDataLoader.load_all_frames`` with the move kernel on the

@@ -174,37 +174,42 @@ def _synth_corpus(wavdir, workdir, rng):
 
 
 def _shared_init(monkeypatch, seed=0):
-    """Both registries' SiameseNetwork load one numpy draw (the JAX
-    initialiser's at ``seed``) when constructed."""
-    jcls = abnet3_tpu.model.SiameseNetwork
-    tcls = abnet3_torch.model.SiameseNetwork
+    """Both registries' SiameseNetwork and SiameseMultitaskNetwork load one
+    numpy draw (the JAX initialiser's at ``seed``) when constructed."""
     draws = {}
-
-    def draw(kw):
-        key = tuple(sorted(kw.items()))
-        if key not in draws:
-            net = jcls(**kw)
-            draws[key] = to_numpy(net.init_params(jax.random.PRNGKey(seed)))
-        return draws[key]
 
     def spec(kw):
         return {k: v for k, v in kw.items()
                 if k not in ("output_path", "device")}
 
-    class JNet(jcls):
-        def __init__(self, **kw):
-            super().__init__(**kw)
-            params, state = draw(spec(kw))
-            self.params = jax.tree_util.tree_map(jax.numpy.asarray, params)
-            self.state = jax.tree_util.tree_map(jax.numpy.asarray, state)
+    for name in ("SiameseNetwork", "SiameseMultitaskNetwork"):
+        jcls = getattr(abnet3_tpu.model, name)
+        tcls = getattr(abnet3_torch.model, name)
 
-    class TNet(tcls):
-        def __init__(self, **kw):
-            super().__init__(**kw)
-            load_jax_numpy(self, *draw(spec(kw)))
+        def draw(kw, jcls=jcls):
+            key = (jcls.__name__,) + tuple(sorted(kw.items()))
+            if key not in draws:
+                net = jcls(**kw)
+                draws[key] = to_numpy(
+                    net.init_params(jax.random.PRNGKey(seed)))
+            return draws[key]
 
-    monkeypatch.setattr(abnet3_tpu.model, "SiameseNetwork", JNet)
-    monkeypatch.setattr(abnet3_torch.model, "SiameseNetwork", TNet)
+        class JNet(jcls):
+            def __init__(self, draw=draw, **kw):
+                super().__init__(**kw)
+                params, state = draw(spec(kw))
+                self.params = jax.tree_util.tree_map(jax.numpy.asarray,
+                                                     params)
+                self.state = jax.tree_util.tree_map(jax.numpy.asarray,
+                                                    state)
+
+        class TNet(tcls):
+            def __init__(self, draw=draw, **kw):
+                super().__init__(**kw)
+                load_jax_numpy(self, *draw(spec(kw)))
+
+        monkeypatch.setattr(abnet3_tpu.model, name, JNet)
+        monkeypatch.setattr(abnet3_torch.model, name, TNet)
 
 
 def _seed_globals():
@@ -410,6 +415,71 @@ def test_on_device_sampler_yaml_runs_as_jax(corpus, tmp_path, monkeypatch):
     aj = json.load(open(os.path.join(jexp, "abx.json")))
     at = json.load(open(os.path.join(texp, "abx.json")))
     assert at["n_triplets"] == aj["n_triplets"] > 0
+
+
+def _shared_features_cfg(corpus, tmp_path):
+    """The wav corpus's YAML config on one feature file both packages
+    read (``features: {run: never}``)."""
+    from abnet3_tpu.features import FeaturesGenerator
+    wavdir, _, _ = corpus
+    feats = str(tmp_path / "shared" / "features")
+    FeaturesGenerator(files=wavdir, output_path=feats, n_filters=8,
+                      normalization=True, norm_per_file=False).generate()
+    return yaml.safe_load(_yaml_text(corpus, run="never", output_path=feats)
+                          .replace("{exp_path}", "EXP"))
+
+
+def _multitask_cfg(corpus, tmp_path):
+    """tests/test_gridsearch.py's MULTI_YAML stages (MultiTaskDataLoader,
+    SiameseMultitaskNetwork, weighted_loss_multi of coscos2 and
+    cosmargin, TrainerSiameseMultitask, EmbedderSiameseMultitask) on the
+    wav corpus, its pairs from the sampler and its spkid file."""
+    from test_gridsearch import MULTI_YAML
+    cfg = _shared_features_cfg(corpus, tmp_path)
+    multi = yaml.safe_load(MULTI_YAML.format(
+        exp_path="EXP", feats_path="F", pairs_path="P",
+        spk_path=corpus[2]))["default_params"]
+    for stage in ("dataloader", "model", "loss", "trainer", "embedder"):
+        cfg["default_params"][stage] = multi[stage]
+    del multi["dataloader"]["arguments"]["pairs_path"]
+    multi["model"]["arguments"]["input_dim"] = 56
+    return cfg
+
+
+def _kl_cfg(corpus, tmp_path):
+    """tests/test_gridsearch.py's softmax-KLLoss recipe (softmax outputs,
+    KLLoss with margin 1.0) on the wav corpus."""
+    cfg = _shared_features_cfg(corpus, tmp_path)
+    p = cfg["default_params"]
+    p["model"]["arguments"]["activation_layer"] = "softmax"
+    p["loss"] = {"class": "KLLoss", "arguments": {"avg": True,
+                                                  "margin": 1.0}}
+    return cfg
+
+
+@pytest.mark.parametrize("make_cfg,emb", [(_multitask_cfg, "embeddings.h5f.phn"),
+                                          (_kl_cfg, "embeddings.h5f")],
+                         ids=["multitask", "softmax-kl"])
+def test_a8_yaml_matches_jax(corpus, tmp_path, monkeypatch, make_cfg, emb):
+    """The multitask YAML and the softmax-KLLoss YAML through both
+    orchestrators to ``abx.json`` on one shared feature file: the same
+    pairs, per-epoch losses within rtol 1e-3, ABX (on the phone head's
+    ``.phn`` file for the multitask embedder) within 0.02 and equal
+    ``n_triplets``."""
+    cfg = make_cfg(corpus, tmp_path)
+    jexp, texp = _run_both(tmp_path, monkeypatch, yaml.safe_dump(cfg)
+                           .replace("EXP", "{exp_path}"))
+    assert _pairs(texp) == _pairs(jexp)
+    for split in ("train_loss", "dev_loss"):
+        lj, lt = _losses(jexp, split), _losses(texp, split)
+        assert len(lt) == len(lj) == 3
+        np.testing.assert_allclose(lt, lj, rtol=1e-3)
+    for exp in (jexp, texp):
+        assert os.path.exists(os.path.join(exp, emb))
+    aj = json.load(open(os.path.join(jexp, "abx.json")))
+    at = json.load(open(os.path.join(texp, "abx.json")))
+    assert at["n_triplets"] == aj["n_triplets"] > 0
+    assert abs(at["error"] - aj["error"]) <= 0.02
 
 
 def test_cli_runs_the_pipeline_from_wavs(corpus, tmp_path):
@@ -638,10 +708,8 @@ def test_num_jobs_spawn_pool(experiment, tmp_path):
 
 
 @pytest.mark.parametrize("stage,name,item", [
-    ("model", "SiameseMultitaskNetwork", "A8"),
-    ("dataloader", "MultiTaskDataLoader", "A8"),
-    ("trainer", "TrainerSiameseMultitask", "A8"),
-    ("loss", "weighted_loss_multi", "A8"),
+    ("model", "MultimodalSiameseNetwork", "A10"),
+    ("trainer", "MultimodalTrainer", "A10"),
     ("dataloader", "MultimodalDataLoader", "A10"),
     ("embedder", "MultimodalEmbedder", "A10"),
 ])
@@ -654,6 +722,25 @@ def test_unported_class_raises(experiment, tmp_path, stage, name, item):
     with pytest.raises(NotImplementedError,
                        match=rf"{name} is not ported .*ROADMAP.md {item}"):
         grid._instantiate(grid.build_grid_experiments()[0])
+
+
+@pytest.mark.parametrize("module,name", [
+    ("model", "SiameseMultitaskNetwork"),
+    ("dataloader", "MultiTaskDataLoader"),
+    ("trainer", "TrainerSiameseMultitask"),
+    ("embedder", "EmbedderSiameseMultitask"),
+    ("loss", "KLLoss"),
+    ("loss", "weighted_loss_multi"),
+])
+def test_a8_class_resolves(module, name):
+    """Each class of the multitask family (ROADMAP A8) resolves from its
+    stage module, as the JAX package's does."""
+    import importlib
+    mod = importlib.import_module(f"abnet3_torch.{module}")
+    cls = tgrid._stage_class(mod, name)
+    assert cls.__name__ == name and cls.__module__.startswith(
+        "abnet3_torch.")
+    assert name not in tgrid._UNPORTED
 
 
 def test_unknown_class_raises(experiment, tmp_path):
