@@ -188,6 +188,35 @@ class DataLoader:
         raise NotImplementedError(
             "You must implement batch_iterator in DataLoader class.")
 
+    # pickle support, as the JAX package's (reference dataloader.py:86-117):
+    # the state keeps the options, the pair lists and the host RNG, and
+    # drops everything load_data() rebuilds (the features, the device
+    # banks and tables, the samplers), so no tensor rides in a pickle;
+    # __setstate__ rebuilds them on the loader's device. Features given
+    # in memory (no features_path to reload them from) stay in the state.
+    _HEAVY_ATTRS = ("token_bank", "_bank_pairs", "frame_bank",
+                    "device_samplers", "_banks")
+    _HEAVY_MODE_DICTS = ("token_features", "frame_pairs", "_tables_dev")
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        if d.get("features_path") is not None and "features" in d:
+            d["features"] = None
+        for k in self._HEAVY_ATTRS:
+            if k in d:
+                d[k] = None
+        for k in self._HEAVY_MODE_DICTS:
+            if k in d:
+                d[k] = {mode: None for mode in d[k]}
+        d["statistics_training"] = dict(self.statistics_training)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.statistics_training = defaultdict(
+            int, d.get("statistics_training", {}))
+        self.load_data()
+
     def whoami(self):
         """Reproducibility dump: every non-private constructor argument
         across the MRO, read back from the instance (reference

@@ -10,9 +10,15 @@ repeating its last valid row. Only one branch runs, in ``eval()`` mode
 under ``torch.no_grad()``, on the network's device; the multitask
 network's two heads ride the same chunks.
 
-Not ported yet (they raise ``NotImplementedError``): the wire codecs
-(``transfer_dtype`` other than ``"float32"``), ``streaming=True``, the
-data-parallel ``mesh``, and the multimodal embedder.
+``transfer_dtype`` picks the wire codec of the device-to-host copies
+(:func:`encode_transfer` on the device, :func:`decode_transfer` on the
+host): the files always store float32. ``streaming=True`` reads the
+input file item by item and appends each file's embeddings as soon as
+its last chunk is back, so memory stays bounded by the chunks in flight
+and one file, whatever the corpus size.
+
+Not ported yet (it raises ``NotImplementedError``): the data-parallel
+``mesh`` (ROADMAP A11); the multimodal embedder waits for A10.
 """
 
 from __future__ import annotations
@@ -25,7 +31,87 @@ import torch
 from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import resolve_device
 
-__all__ = ["EmbedderBuilder", "EmbedderSiamese", "EmbedderSiameseMultitask"]
+__all__ = ["EmbedderBuilder", "EmbedderSiamese", "EmbedderSiameseMultitask",
+           "encode_transfer", "decode_transfer"]
+
+_WINDOW = 16       # encoded chunks in flight on the device before a drain
+_FLUSH_EVERY = 32  # finished files a streaming writer appends at once
+
+
+def encode_transfer(out: torch.Tensor, transfer_dtype: str):
+    """Device-side wire codec: shrink the bytes a chunk of embeddings
+    ships over the device->host copy (the files always store float32; the
+    codec lives on the wire only). Takes and returns tensors on ``out``'s
+    device, as a tuple of leaves, in float32 arithmetic in the JAX
+    package's order, so the same float32 input gives the same codes:
+
+    - ``float32``: identity, 4 B/value.
+    - ``bfloat16``: cast, 2 B/value, ~3 decimal digits.
+    - ``int8``: one affine scale for the chunk, ``q = round((x-lo)/scale)``
+      (half to even) with the scalar ``lo``/``scale`` riding along,
+      1 B/value; the round-trip error is at most (hi-lo)/510.
+    - ``int4``: one affine scale per dimension, two codes packed in a
+      uint8 (an odd dimension count pads one zero column on the wire),
+      0.5 B/value plus 8 B a dimension; the error is at most
+      (hi_d-lo_d)/30 in dimension d. Opt-in: too coarse for numeric
+      reuse, fine for ABX ranking.
+    """
+    if transfer_dtype == "bfloat16":
+        return (out.to(torch.bfloat16),)
+    # the divisors are tensors on out's device: on the card, a Python
+    # scalar divisor becomes a multiply by its reciprocal, which rounds
+    # otherwise than the division of the CPU and of the JAX package
+    if transfer_dtype == "int8":
+        lo = torch.min(out)
+        scale = (torch.clamp(torch.max(out) - lo, min=1e-12)
+                 / torch.full_like(lo, 255.0))
+        q = torch.round((out - lo) / scale).to(torch.uint8)
+        return (q, lo.float(), scale.float())
+    if transfer_dtype == "int4":
+        lo = torch.amin(out, dim=0)
+        scale = (torch.clamp(torch.amax(out, dim=0) - lo, min=1e-12)
+                 / torch.full_like(lo, 15.0))
+        q = torch.round((out - lo) / scale).to(torch.uint8)
+        if q.shape[1] % 2:
+            q = torch.nn.functional.pad(q, (0, 1))
+        packed = q[:, 0::2] | (q[:, 1::2] << 4)
+        return (packed, lo.float(), scale.float())
+    return (out,)
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as a host numpy array: a tensor is copied to the host first
+    and only then upcast from bfloat16 (numpy has no bfloat16), so the
+    wire carries the codec's bytes."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.numpy()
+    return np.asarray(leaf)
+
+
+def decode_transfer(leaves) -> np.ndarray:
+    """Host-side inverse of :func:`encode_transfer` -> float32 array; the
+    leaves are tensors (on any device) or numpy arrays."""
+    if len(leaves) == 1:
+        host = _host(leaves[0])
+        return host if host.dtype == np.float32 \
+            else host.astype(np.float32)
+    q, lo, scale = (_host(p) for p in leaves)
+    if lo.ndim == 1:  # int4: per-dim affine, two codes per uint8
+        d = lo.shape[0]
+        un = np.empty((q.shape[0], 2 * q.shape[1]), np.float32)
+        un[:, 0::2] = q & 0x0F
+        un[:, 1::2] = q >> 4
+        return un[:, :d] * scale[None, :] + lo[None, :]
+    return q.astype(np.float32) * float(scale) + float(lo)
+
+
+def _decode_rows(head, valid: int) -> np.ndarray:
+    """The first ``valid`` rows of one encoded head, decoded on the host:
+    only the codes of those rows cross the wire."""
+    return decode_transfer((head[0][:valid],) + tuple(head[1:]))
 
 
 class EmbedderBuilder:
@@ -39,14 +125,10 @@ class EmbedderBuilder:
         if network is None:
             raise ValueError("network is None.")
         assert transfer_dtype in ("float32", "bfloat16", "int8", "int4")
-        for name, value, default in (("transfer_dtype", transfer_dtype,
-                                      "float32"),
-                                     ("streaming", streaming, False),
-                                     ("mesh", mesh, None)):
-            if value != default:
-                raise NotImplementedError(
-                    f"EmbedderBuilder({name}={value!r}) is not ported to "
-                    "abnet3_torch yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"EmbedderBuilder(mesh={mesh!r}) is not ported to "
+                "abnet3_torch yet (ROADMAP.md A11)")
         self.network = network
         self.network_path = network_path
         self.feature_path = feature_path
@@ -69,20 +151,24 @@ class EmbedderBuilder:
         print("Done loading network weights")
 
     def _forward_fn(self):
-        """(rows, d) float32 tensor on the network's device -> (rows, d_out)
-        embeddings (a tuple of them, one a head, for the multitask
-        network), one branch in eval mode (the network's mode is restored
-        after each call)."""
+        """(rows, d) float32 tensor on the network's device -> a tuple of
+        heads (one, or the multitask network's speaker and phone heads),
+        each the tuple of :func:`encode_transfer` leaves of its (rows,
+        d_out) embeddings; one branch in eval mode (the network's mode is
+        restored after each call)."""
         network = self.network
+        transfer_dtype = self.transfer_dtype
 
         @torch.no_grad()
         def forward(x):
             was_training = network.training
             network.eval()
             try:
-                return network.forward_once(x)
+                out = network.forward_once(x)
             finally:
                 network.train(was_training)
+            heads = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+            return tuple(encode_transfer(h, transfer_dtype) for h in heads)
 
         return forward
 
@@ -101,81 +187,181 @@ class EmbedderBuilder:
         return self.batch_size
 
     def _embed_corpus(self, forward, feats_list, n_outputs: int = 1):
-        """Embed every file's frames through fixed-size padded chunks.
+        """Embed every file's frames: :meth:`_embed_streaming` over the
+        list, so both paths cut the same chunks by construction. Returns
+        one float32 (n_frames_i, d_out) array per file; with ``n_outputs``
+        > 1 a tuple of one such list per head."""
+        done = []
+        self._embed_streaming(
+            forward, ((i, None, f) for i, f in enumerate(feats_list)),
+            lambda item, labels, embs: done.append(embs), n_outputs)
+        lists = [[embs[h] for embs in done] for h in range(n_outputs)]
+        return lists[0] if n_outputs == 1 else tuple(lists)
 
-        PACKED: the files' frames form one stream and chunks are cut from
-        it across file boundaries (every forward is row-independent in eval
-        mode). The tail chunk pads to the :meth:`_pad_target` ladder by
-        repeating its last valid row; pad rows are dropped. Up to
-        ``window`` chunks are in flight on the device before the oldest is
-        copied back, so the host cuts the next chunk while the card runs.
-        Returns one float32 (n_frames_i, d_out) array per file; with
-        ``n_outputs`` > 1 ``forward`` returns a tuple of that many heads
-        and this a tuple of one such list per head."""
+    def _embed_array(self, forward, feat: np.ndarray) -> np.ndarray:
+        """Embed one file (kept for API compatibility); see
+        :meth:`_embed_corpus`."""
+        return self._embed_corpus(forward, [feat])[0]
+
+    def _embed_streaming(self, forward, stream, on_file_done,
+                         n_outputs: int = 1):
+        """Embed a stream of files through fixed-size padded chunks.
+
+        ``stream`` yields ``(item, labels, frames)``; each file's decoded
+        embeddings go to ``on_file_done(item, labels, [per-head arrays])``
+        as soon as its last chunk drains. PACKED: the files' frames form
+        one stream and chunks are cut from it across file boundaries
+        (every forward is row-independent in eval mode); a chunk records
+        its (file, rows) spans and splits on drain. The tail chunk pads to
+        the :meth:`_pad_target` ladder by repeating its last valid row
+        (pad rows are dropped, but their outputs enter the int8 codec's
+        per-chunk min and max: zero rows would widen its range). Up to
+        ``_WINDOW`` chunks are in flight on the device before the oldest
+        is copied back and decoded, so the host cuts the next chunk while
+        the card runs; memory is O(window + current file). ``forward``
+        returns one encoded head per output (:meth:`_forward_fn`).
+        ``on_file_done`` fires strictly in stream order (h5features
+        appends positionally), 0-frame files included, which emit (0, d)
+        arrays: one that precedes every forward waits for the first drain
+        to learn d, and a stream of only empty files runs one probe
+        forward (a (0, 0) feature set writes a malformed h5features
+        container)."""
         bs = self.batch_size
-        lens = [len(f) for f in feats_list]
-        offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
-        total = int(offsets[-1])
         device = self.network.device
+        pending = []   # (spans, valid_rows, encoded heads)
+        live = {}      # file_seq -> [item, labels, [parts]*heads, n_left]
+        buf = []       # [(file_seq, rows-array)] not yet dispatched
+        buf_rows = 0
+        head_dims = [None] * n_outputs
+        in_dim = None  # feature dim, for the all-empty-stream probe
 
-        def heads(emb):
-            return (emb,) if n_outputs == 1 else tuple(emb)
-
-        def per_file(outs):
-            lists = [[o[offsets[i]:offsets[i + 1]]
-                      for i in range(len(feats_list))] for o in outs]
-            return lists[0] if n_outputs == 1 else tuple(lists)
-
-        if total == 0:
-            # all-empty corpus: one zero forward gives the output width (a
-            # (0, 0) feature set writes a malformed h5features container)
-            dims = [f.shape[1] for f in feats_list
-                    if getattr(f, "ndim", 0) == 2]
-            d_out = [0] * n_outputs
-            if feats_list and len(dims) == len(feats_list):
-                d_out = [e.shape[1] for e in heads(forward(torch.zeros(
-                    (self._pad_target(1), dims[0]), dtype=torch.float32,
-                    device=device)))]
-            return per_file([np.zeros((0, d), np.float32) for d in d_out])
-        out = None  # per head (total, d_out), sized at the first drain
-        window = 16
-        pending = []  # (row_start, valid_rows, device output)
+        def emit_ready():
+            # emit completed files from the front of `live` (insertion =
+            # stream order): a later file never finishes a drain before
+            # an earlier one, so this keeps the corpus order exactly
+            while live:
+                seq = next(iter(live))
+                item, labels, parts, n_left = live[seq]
+                if n_left != 0:
+                    return
+                if parts[0]:
+                    out = [p[0] if len(p) == 1 else np.vstack(p)
+                           for p in parts]
+                elif head_dims[0] is not None:
+                    out = [np.zeros((0, head_dims[h]), np.float32)
+                           for h in range(n_outputs)]
+                else:  # 0-frame file before any forward: dims unknown
+                    return
+                del live[seq]
+                on_file_done(item, labels, out)
 
         def drain_one():
-            nonlocal out
-            c0, valid, emb = pending.pop(0)
-            hosts = [e[:valid].float().cpu().numpy() for e in heads(emb)]
-            if out is None:
-                out = [np.empty((total, h.shape[1]), np.float32)
-                       for h in hosts]
-            for o, h in zip(out, hosts):
-                o[c0:c0 + valid] = h
+            spans, valid, heads = pending.pop(0)
+            decs = [_decode_rows(head, valid) for head in heads]
+            for h, d in enumerate(decs):
+                head_dims[h] = d.shape[1]
+            r = 0
+            for seq, k in spans:
+                rec = live[seq]
+                for h in range(n_outputs):
+                    rec[2][h].append(decs[h][r:r + k])
+                rec[3] -= k
+                r += k
+            emit_ready()
 
-        fi = 0
-        for c0 in range(0, total, bs):
-            valid = min(bs, total - c0)
-            target = bs if valid == bs else self._pad_target(valid)
-            pieces = []
-            got = 0
+        def dispatch(valid):
+            nonlocal buf_rows
+            spans, pieces, got = [], [], 0
             while got < valid:
-                while lens[fi] <= c0 + got - offsets[fi]:
-                    fi += 1  # skip exhausted / empty files
-                a = c0 + got - offsets[fi]
-                take = min(lens[fi] - a, valid - got)
-                pieces.append(np.asarray(feats_list[fi][a:a + take],
-                                         np.float32))
+                seq, rows = buf[0]
+                take = min(len(rows), valid - got)
+                spans.append((seq, take))
+                pieces.append(rows[:take])
+                if take == len(rows):
+                    buf.pop(0)
+                else:
+                    buf[0] = (seq, rows[take:])
                 got += take
-            chunk = pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
+            buf_rows -= valid
+            chunk = pieces[0] if len(pieces) == 1 else np.vstack(pieces)
+            target = bs if valid == bs else self._pad_target(valid)
             if target > valid:
-                chunk = np.vstack([chunk, np.repeat(chunk[-1:],
-                                                    target - valid, axis=0)])
+                chunk = np.vstack([chunk, np.repeat(
+                    chunk[-1:], target - valid, axis=0)])
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
-            pending.append((c0, valid, forward(x)))
-            if len(pending) >= window:
+            pending.append((spans, valid, forward(x)))
+            if len(pending) >= _WINDOW:
                 drain_one()
+
+        for seq, (item, labels, feat) in enumerate(stream):
+            feat = np.asarray(feat, np.float32)
+            if feat.ndim == 2:
+                in_dim = feat.shape[1]
+            live[seq] = [item, labels,
+                         [[] for _ in range(n_outputs)], len(feat)]
+            if len(feat) == 0:
+                emit_ready()
+                continue
+            buf.append((seq, feat))
+            buf_rows += len(feat)
+            while buf_rows >= bs:
+                dispatch(bs)
+        if buf_rows:
+            dispatch(buf_rows)
         while pending:
             drain_one()
-        return per_file(out)
+        if live:
+            # only 0-frame files can remain: the stream never ran a
+            # forward (all files empty), so probe one ladder-rung zero
+            # chunk for the head dims
+            if head_dims[0] is None and in_dim is not None:
+                heads = forward(torch.zeros(
+                    (self._pad_target(1), in_dim), dtype=torch.float32,
+                    device=device))
+                for h, head in enumerate(heads):
+                    head_dims[h] = decode_transfer(head).shape[1]
+            if head_dims[0] is None:
+                head_dims = [0] * n_outputs
+            emit_ready()
+        assert not live
+
+    def _embed_file(self, forward, suffixes):
+        """Embed ``feature_path`` into one h5features file a head
+        (``output_path`` + each of ``suffixes``), replacing any file
+        already there: the whole corpus at once, or streamed item by item
+        with ``streaming=True``."""
+        from abnet3_torch.io.h5f import (iter_h5features, read_h5features,
+                                         write_h5features)
+        paths = [self.output_path + suffix for suffix in suffixes]
+        if self.streaming:
+            for path in paths:
+                if os.path.exists(path):
+                    os.remove(path)
+            writers = [_BatchedWriter(path, "features") for path in paths]
+
+            def on_done(item, labels, embs):
+                for writer, e in zip(writers, embs):
+                    writer.add(item, labels, e)
+
+            with stage_trace("embed"):
+                self._embed_streaming(
+                    forward, iter_h5features(self.feature_path, "features"),
+                    on_done, n_outputs=len(paths))
+            for writer in writers:
+                writer.flush()
+            return
+        data = read_h5features(self.feature_path, "features")
+        print("Done loading input feature file")
+        with stage_trace("embed"):
+            heads = self._embed_corpus(forward, data.features(),
+                                       n_outputs=len(paths))
+        if len(paths) == 1:
+            heads = (heads,)
+        for path, embs in zip(paths, heads):
+            if os.path.exists(path):
+                os.remove(path)
+            write_h5features(path, "features", data.items(), data.labels(),
+                             embs)
 
     def embed(self):
         raise NotImplementedError("Unimplemented embed for class:",
@@ -187,17 +373,8 @@ class EmbedderSiamese(EmbedderBuilder):
     ``feature_path`` and writes ``output_path``, both h5features."""
 
     def embed(self):
-        from abnet3_torch.io.h5f import read_h5features, write_h5features
         self._load()
-        forward = self._forward_fn()
-        data = read_h5features(self.feature_path, "features")
-        print("Done loading input feature file")
-        with stage_trace("embed"):
-            embeddings = self._embed_corpus(forward, data.features())
-        if os.path.exists(self.output_path):
-            os.remove(self.output_path)
-        write_h5features(self.output_path, "features", data.items(),
-                         data.labels(), embeddings)
+        self._embed_file(self._forward_fn(), ("",))
 
 
 class EmbedderSiameseMultitask(EmbedderBuilder):
@@ -207,16 +384,32 @@ class EmbedderSiameseMultitask(EmbedderBuilder):
     ".phn"``, both h5features."""
 
     def embed(self):
-        from abnet3_torch.io.h5f import read_h5features, write_h5features
         self._load()
-        forward = self._forward_fn()
-        data = read_h5features(self.feature_path, "features")
-        with stage_trace("embed"):
-            emb_spk, emb_phn = self._embed_corpus(forward, data.features(),
-                                                  n_outputs=2)
-        for suffix, embs in ((".spk", emb_spk), (".phn", emb_phn)):
-            path = self.output_path + suffix
-            if os.path.exists(path):
-                os.remove(path)
-            write_h5features(path, "features", data.items(), data.labels(),
-                             embs)
+        self._embed_file(self._forward_fn(), (".spk", ".phn"))
+
+
+class _BatchedWriter:
+    """Collect finished files and append them to an h5features file in
+    batches of ``_FLUSH_EVERY`` (one reopen a flush, not a file: the
+    writer appends to an existing file)."""
+
+    def __init__(self, path: str, group: str):
+        self.path = path
+        self.group = group
+        self._items = []
+        self._labels = []
+        self._feats = []
+
+    def add(self, item, labels, feats):
+        self._items.append(item)
+        self._labels.append(labels)
+        self._feats.append(feats)
+        if len(self._items) >= _FLUSH_EVERY:
+            self.flush()
+
+    def flush(self):
+        from abnet3_torch.io.h5f import write_h5features
+        if self._items:
+            write_h5features(self.path, self.group, self._items,
+                             self._labels, self._feats)
+            self._items, self._labels, self._feats = [], [], []

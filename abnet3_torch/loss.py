@@ -15,8 +15,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["cosine_similarity", "normalize_rows", "kl_loss_fn", "LossBuilder",
-           "coscos2", "cosmargin", "KLLoss", "weighted_loss_multi"]
+__all__ = ["cosine_similarity", "normalize_rows", "coscos2_fn",
+           "cosmargin_fn", "kl_loss_fn", "coscos2_from_cos",
+           "cosmargin_from_cos", "LossBuilder", "coscos2", "cosmargin",
+           "KLLoss", "weighted_loss_multi"]
 
 
 def cosine_similarity(x1: torch.Tensor, x2: torch.Tensor,
@@ -52,6 +54,40 @@ def _reduce(values: torch.Tensor, weights: Optional[torch.Tensor],
     if avg:
         return torch.mean(values)
     return torch.sum(values)
+
+
+def _coscos2_values(c, y):
+    """same -> (1 - cos) / 2 ; diff -> cos^2 (reference loss.py:59-67)."""
+    return torch.where(y > 0, (1.0 - c) / 2.0, c * c)
+
+
+def _cosmargin_values(c, y, margin):
+    """same -> 1 - cos ; diff -> max(0, cos - margin)
+    (reference loss.py:97-105)."""
+    return torch.where(y > 0, 1.0 - c, torch.clamp(c - margin, min=0.0))
+
+
+def coscos2_from_cos(c, y, weights=None, avg=True):
+    """coscos2 on precomputed cosine similarities of any shape (the loss
+    is elementwise in the cosine)."""
+    return _reduce(_coscos2_values(c, y), weights, avg)
+
+
+def cosmargin_from_cos(c, y, margin=0.5, weights=None, avg=True):
+    """cosmargin on precomputed cosine similarities of any shape."""
+    return _reduce(_cosmargin_values(c, y, margin), weights, avg)
+
+
+def coscos2_fn(input1, input2, y, weights=None, avg=True):
+    """coscos2 of row-aligned embeddings (reference loss.py:59-67)."""
+    return coscos2_from_cos(cosine_similarity(input1, input2), y,
+                            weights=weights, avg=avg)
+
+
+def cosmargin_fn(input1, input2, y, margin=0.5, weights=None, avg=True):
+    """cosmargin of row-aligned embeddings (reference loss.py:97-105)."""
+    return cosmargin_from_cos(cosine_similarity(input1, input2), y,
+                              margin=margin, weights=weights, avg=avg)
 
 
 def _hinge(x, y, margin):
@@ -189,7 +225,7 @@ class coscos2(_CosCellsMixin, LossBuilder):
         self.avg = avg
 
     def cell_values(self, cells, y):
-        return torch.where(y > 0, (1.0 - cells) / 2.0, cells * cells)
+        return _coscos2_values(cells, y)
 
 
 class cosmargin(_CosCellsMixin, LossBuilder):
@@ -205,8 +241,7 @@ class cosmargin(_CosCellsMixin, LossBuilder):
         self.avg = avg
 
     def cell_values(self, cells, y):
-        return torch.where(y > 0, 1.0 - cells,
-                           torch.clamp(cells - self.margin, min=0.0))
+        return _cosmargin_values(cells, y, self.margin)
 
 
 class KLLoss(LossBuilder):

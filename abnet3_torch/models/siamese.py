@@ -48,6 +48,13 @@ class NetworkBuilder(nn.Module):
                            if not k.startswith("_") and k != "training"},
                 "class_name": self.__class__.__name__}
 
+    def plot_network(self, *args, **kwargs):
+        """Graphviz visualization (unimplemented in the reference too,
+        reference model.py:74-79)."""
+        raise NotImplementedError(
+            "Unimplemented plot_network for class:",
+            self.__class__.__name__)
+
     def jax_towers(self):
         """[(key, tower)] in the JAX package's params tree: key None for
         a tower whose layers sit at the top of the tree."""

@@ -21,8 +21,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-__all__ = ["ACTIVATIONS", "calculate_gain", "Dense", "Tower", "TowerSpec",
-           "ForwardReplay"]
+__all__ = ["ACTIVATIONS", "calculate_gain", "init_dense", "Dense", "Tower",
+           "TowerSpec", "ForwardReplay", "count_params"]
 
 
 ACTIVATIONS = {
@@ -65,6 +65,18 @@ INITS = {
     "xavier_normal": _xavier_normal,
     "orthogonal": _orthogonal,
 }
+
+
+def init_dense(generator: torch.Generator, in_dim: int, out_dim: int,
+               type_init: str, gain: float) -> dict:
+    """Dense parameters stored (in_dim, out_dim), the bias zero-filled
+    (reference model.py:172-177), drawn from ``generator`` on its device
+    (the JAX package draws from a PRNG key instead)."""
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32,
+                    device=generator.device)
+    INITS[type_init](w, gain, generator)
+    return {"w": w, "b": torch.zeros((out_dim,), dtype=torch.float32,
+                                     device=generator.device)}
 
 
 class TowerSpec:
@@ -136,14 +148,12 @@ class Tower(nn.Module):
         """Fresh init in place (parameters keep their identity, so an
         optimizer built on them stays valid)."""
         gain = calculate_gain(self.spec.gain_activation)
-        init = INITS[self.spec.type_init]
         for layer in self.layers:
             # draw on the generator's device, then copy: the same seed
             # gives the same weights whatever device the tower lives on
-            w = torch.empty(layer.w.shape, dtype=torch.float32,
-                            device=generator.device)
-            init(w, gain, generator)
-            layer.w.copy_(w)
+            fresh = init_dense(generator, *layer.w.shape,
+                               self.spec.type_init, gain)
+            layer.w.copy_(fresh["w"])
             layer.b.zero_()
             if self.spec.batch_norm:
                 layer.bn_scale.fill_(1.0)
@@ -236,3 +246,14 @@ class ForwardReplay:
             tower.update_stats = True
         self.generator.set_state(self.after)
         return False
+
+
+def count_params(params) -> int:
+    """Number of trainable values: of a module's parameters, or of the
+    leaves of a (nested) dict of arrays such as the JAX package's params
+    tree."""
+    if isinstance(params, nn.Module):
+        return int(sum(p.numel() for p in params.parameters()))
+    if isinstance(params, dict):
+        return int(sum(count_params(v) for v in params.values()))
+    return int(math.prod(params.shape))

@@ -1,8 +1,8 @@
 """Host-side utilities: text parsers, sampling distributions, feature
 access, device choice.
 
-A copy of the parts of ``abnet3_tpu/utils.py`` that the port uses, with
-the same file formats and semantics (the sampling helpers draw from the
+A copy of ``abnet3_tpu/utils.py``'s host helpers, with the same file
+formats and semantics (the sampling helpers draw from the
 global ``np.random`` exactly as there; the host DTW of
 :func:`get_dtw_alignment` breaks ties as there), plus
 :func:`resolve_device`, which every entry point of the port uses to pick
@@ -12,6 +12,7 @@ its device, and :func:`full_float32`.
 from __future__ import annotations
 
 import contextlib
+import os
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -19,11 +20,14 @@ import numpy as np
 import torch
 
 __all__ = ["read_spkid_file", "read_spk_list", "read_dataset",
-           "group_pairs", "read_vad_file", "print_token",
+           "read_dataset_python", "group_pairs", "read_pairs",
+           "read_vad_file", "Parse_Dataset", "print_token",
            "normalize_distribution", "cumulative_distribution",
            "sample_searchidx", "Features_Accessor", "read_feats",
            "resolve_device", "full_float32", "pow2_bucket",
-           "cosine_distance", "dtw_numpy_fast", "get_dtw_alignment"]
+           "cosine_distance", "dtw_numpy", "dtw_numpy_fast",
+           "get_dtw_alignment", "progress", "to_ordinal", "get_var_name",
+           "cast_features"]
 
 
 def resolve_device(device=None, cuda: bool = True) -> torch.device:
@@ -104,6 +108,11 @@ def read_dataset(dataset_file: str) -> List[Tuple]:
     return pairs
 
 
+# the JAX package's name for its Python parser (its optional native one
+# is not part of the port)
+read_dataset_python = read_dataset
+
+
 def group_pairs(pairs: Sequence[Tuple]) -> Dict[str, List[Tuple]]:
     """Group 7-tuples by pair type (reference utils.py:176-192)."""
     grouped: Dict[str, List[Tuple]] = {"same": [], "diff": []}
@@ -114,6 +123,10 @@ def group_pairs(pairs: Sequence[Tuple]) -> Dict[str, List[Tuple]]:
     return grouped
 
 
+def read_pairs(pair_file: str) -> Dict[str, List[Tuple]]:
+    return group_pairs(read_dataset(pair_file))
+
+
 def read_vad_file(path: str) -> Dict[str, List[List[float]]]:
     """CSV with header: ``file,start,end`` (reference utils.py:238-254)."""
     dict_vad: Dict[str, List[List[float]]] = defaultdict(list)
@@ -122,6 +135,12 @@ def read_vad_file(path: str) -> Dict[str, List[List[float]]]:
     for name, s, e in lines[1:]:  # skip header
         dict_vad[name].append([float(s), float(e)])
     return dict_vad
+
+
+def Parse_Dataset(path: str) -> List[str]:
+    """List ``.batch`` files in a folder (reference utils.py:108-115)."""
+    return [os.path.join(path, f) for f in os.listdir(path)
+            if f.endswith(".batch")]
 
 
 def print_token(tok) -> str:
@@ -238,6 +257,44 @@ def cosine_distance(x: np.ndarray, y: np.ndarray) -> np.ndarray:
     return np.asarray(d, dtype=np.float64)
 
 
+def dtw_numpy(dist: np.ndarray) -> Tuple[float, np.ndarray, np.ndarray]:
+    """Plain O(T1*T2) DTW with backtrace over a precomputed cost matrix:
+    steps {(1,0),(0,1),(1,1)}, ties prefer the diagonal (the reference's
+    Cython ``DTW(...)``, utils.py:147-153). Returns (total_cost, path1,
+    path2) with paths from (0, 0) to the corner."""
+    n1, n2 = dist.shape
+    D = np.full((n1, n2), np.inf, dtype=np.float64)
+    D[0, 0] = dist[0, 0]
+    for i in range(1, n1):
+        D[i, 0] = D[i - 1, 0] + dist[i, 0]
+    for j in range(1, n2):
+        D[0, j] = D[0, j - 1] + dist[0, j]
+    for i in range(1, n1):
+        for j in range(1, n2):
+            D[i, j] = dist[i, j] + min(D[i - 1, j - 1], D[i - 1, j],
+                                       D[i, j - 1])
+    i, j = n1 - 1, n2 - 1
+    p1, p2 = [i], [j]
+    while i > 0 or j > 0:
+        if i == 0:
+            j -= 1
+        elif j == 0:
+            i -= 1
+        else:
+            diag, up, left = D[i - 1, j - 1], D[i - 1, j], D[i, j - 1]
+            if diag <= up and diag <= left:
+                i, j = i - 1, j - 1
+            elif up <= left:
+                i -= 1
+            else:
+                j -= 1
+        p1.append(i)
+        p2.append(j)
+    return (float(D[n1 - 1, n2 - 1]),
+            np.array(p1[::-1], dtype=np.int64),
+            np.array(p2[::-1], dtype=np.int64))
+
+
 def dtw_numpy_fast(dist: np.ndarray) -> Tuple[float, np.ndarray, np.ndarray]:
     """DTW over a cost matrix with steps {(1,0),(0,1),(1,1)}, each row of
     the DP one cumsum + one cumulative minimum (a (min,+) closed form),
@@ -286,3 +343,44 @@ def get_dtw_alignment(feat1: np.ndarray,
     their :func:`cosine_distance` matrix."""
     _, path1, path2 = dtw_numpy_fast(cosine_distance(feat1, feat2))
     return path1, path2
+
+
+def progress(max_number: int, every: float = 0.1, title: str = ""):
+    """Returns a callable printing progress every ``every`` fraction
+    (reference utils.py:257-280)."""
+    state = {"next": 0.0}
+
+    def print_progress(current_progress):
+        current = current_progress / max_number
+        if current >= state["next"]:
+            print("Progress: {:.1f}% of process {}".format(
+                state["next"] * 100, title))
+            state["next"] = (current // every) * every + every
+    return print_progress
+
+
+def to_ordinal(number: int) -> str:
+    suffix = "th"
+    if not 10 < number < 21:
+        if number % 10 == 1:
+            suffix = "st"
+        elif number % 10 == 2:
+            suffix = "nd"
+        elif number % 10 == 3:
+            suffix = "rd"
+    return f"{number}{suffix}"
+
+
+def get_var_name(**variable) -> str:
+    """Name of the single keyword argument (reference utils.py:19-20):
+    ``get_var_name(foo=foo) == 'foo'``."""
+    return list(variable.keys())[0]
+
+
+def cast_features(features: Dict[str, np.ndarray],
+                  target_type=np.float32) -> Dict[str, np.ndarray]:
+    """Cast every per-item feature matrix in place to ``target_type``
+    (reference utils.py:228-237)."""
+    for item in features:
+        features[item] = features[item].astype(target_type)
+    return features

@@ -136,22 +136,43 @@ Phases, each printing JSON lines:
     with the card has no h5py, so ``generate()``/``embed()``/
     ``evaluate()``'s file layer is held against the JAX package by the
     CPU tests;
-16. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+16. embed_path: the rest of the embedder on the same corpus and trained
+    network (batch 5,000): (a) the corpus as an in-memory stream with a
+    0-frame file first and one in the middle through
+    ``_embed_streaming``, every file equal to ``_embed_corpus``'s (float32),
+    the multitask network's two heads the same way; (b) the wire codecs
+    (bfloat16, int8, int4): the card's encode of a chunk decoded on the
+    host equal to the CPU's, the streamed corpus within JAX's bound of the
+    float32 embeddings (one bf16 rounding, (hi-lo)/510 a chunk,
+    (hi_d-lo_d)/30 a dimension), the wire's bytes a value (2, 1, 0.5) from
+    the leaves' ``nbytes``, ``embed_s`` each after one warm-up pass; (c) 1,024 tokens (128
+    classes x 8) cut from the int8-streamed embeddings through
+    ``distance_matrix(strategy="tiles", device_out=True)``: 10 upper tiles
+    of 256, 2,560 ``dtw_path_stats`` launches, its ``abx_error_device``
+    beside the float32 embeddings' on the same inventory; (d) the main path's loader
+    pickled: no tensor in its state, its bank rebuilt on the card by
+    ``load_data()``, its first seeded batch equal to the original's; (e)
+    the embed CLI (``abnet3_torch.tools.embed_cli``) where h5py is
+    installed, else a line saying so; (f) the learning check of
+    tests/test_quality.py (``learning_check``): the train loss falls and
+    the trained ABX proxy is under 0.7x the raw features', ``dtw_path``
+    launched once a step;
+17. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
-17. timing: for each of the four kernels ``device_ms`` (the kernel's own
+18. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-18. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
+19. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
     steps (the device loader's batch building included), over 10
     multitask split steps, over one
-    sampled train call of 8 steps, over one ABX tile of 1,024 rows and
-    over one device scoring pass (across): device time by group,
-    launches and the busy share.
+    sampled train call of 8 steps, over one ABX tile of 1,024 rows, over
+    one device scoring pass (across) and over one int8 streamed embed of
+    the corpus: device time by group, launches and the busy share.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and as the last line the ``ok`` object. Any failure raises
@@ -2100,6 +2121,500 @@ def phase_eval_path(network, features, batch_size=5000, n_classes=512,
     return bank, launches, costs_launches, score_run
 
 
+# -- the learning check (tests/test_quality.py's corpus and recipe) ---------
+
+LEARN_D = 12
+LEARN_CLASSES = 5
+LEARN_SPK = 4
+LEARN_TOKENS_PER_CLASS = 8
+LEARN_PROTO_LEN = 20
+
+
+def learning_corpus(seed=0):
+    """tests/test_quality.py's synthetic corpus, in memory and drawn in the
+    same order from the same seed: 5 word classes of 8 tokens, each a
+    time-warped noisy copy of its class's prototype trajectory (12 dims)
+    shifted by its speaker's large offset (4 speakers), tokens separated
+    by 5 silent frames. Returns ({file: frames}, {file: times}, the
+    ``.classes`` lines, [(class, file, t0, t1)])."""
+    rng = np.random.RandomState(seed)
+    D, L0 = LEARN_D, LEARN_PROTO_LEN
+    protos = [np.cumsum(rng.randn(L0, D), axis=0)
+              for _ in range(LEARN_CLASSES)]
+    spk_offsets = [rng.randn(D) * 6.0 for _ in range(LEARN_SPK)]
+    chunks = {f"spk{s}_f": [] for s in range(LEARN_SPK)}
+    cursor = {f: 0 for f in chunks}
+    lines, tok_meta = [], []
+    for c in range(LEARN_CLASSES):
+        lines.append(f"{c} word{c}")
+        for _ in range(LEARN_TOKENS_PER_CLASS):
+            s = rng.randint(LEARN_SPK)
+            fname = f"spk{s}_f"
+            n = rng.randint(L0 - 6, L0 + 7)
+            idx = np.linspace(0, L0 - 1, n)
+            warped = np.stack([np.interp(idx, np.arange(L0),
+                                         protos[c][:, d])
+                               for d in range(D)], axis=1)
+            token = warped + spk_offsets[s] + rng.randn(n, D) * 0.3
+            start = cursor[fname]
+            chunks[fname].append(token.astype(np.float32))
+            chunks[fname].append(np.zeros((5, D), np.float32))
+            t0 = start * 0.01 + 0.0025
+            t1 = (start + n - 1) * 0.01 + 0.0025
+            lines.append(f"{fname} {t0:.4f} {t1:.4f}")
+            tok_meta.append((c, fname, t0, t1))
+            cursor[fname] += n + 5
+        lines.append("")
+    feats = {f: np.vstack(c) for f, c in chunks.items()}
+    times = {f: np.arange(len(m)) * 0.01 + 0.0025 for f, m in feats.items()}
+    return feats, times, lines, tok_meta
+
+
+def abx_proxy(accessor, tok_meta, rng):
+    """tests/test_quality.py's across-speaker ABX proxy: A and B of one
+    class from different speakers, X of another class from A's speaker;
+    an error when d(A, B) >= d(A, X) on the cosine distance of mean-pooled
+    frames, over 300 triplets."""
+    by_class = {}
+    for c, f, t0, t1 in tok_meta:
+        by_class.setdefault(c, []).append((f, t0, t1))
+
+    def emb(tok):
+        v = accessor.get(*tok).mean(axis=0)
+        return v / (np.linalg.norm(v) + 1e-9)
+
+    errors, total, attempts = 0, 0, 0
+    classes = list(by_class)
+    while total < 300 and attempts < 5000:
+        attempts += 1
+        ca, cx = rng.choice(classes, 2, replace=False)
+        toks_a = by_class[ca]
+        a = toks_a[rng.randint(len(toks_a))]
+        b_cands = [t for t in toks_a if t[0] != a[0]]
+        x_cands = [t for t in by_class[cx] if t[0] == a[0]]
+        if not b_cands or not x_cands:
+            continue
+        b = b_cands[rng.randint(len(b_cands))]
+        x = x_cands[rng.randint(len(x_cands))]
+        ea, eb, ex = emb(a), emb(b), emb(x)
+        errors += (1 - ea @ eb) >= (1 - ea @ ex)
+        total += 1
+    return errors / max(total, 1)
+
+
+def learning_check(workdir, device=None):
+    """tests/test_quality.py's pipeline on ``device`` (the card by
+    default), in memory: the ABX proxy of the raw features, then the
+    sampler (600 pairs), the bank loader, a 12->64->64->64->16 sigmoid
+    SiameseNetwork trained 25 epochs with adam 0.005 and coscos2, the
+    best network reloaded and embedded, and the proxy of the embeddings.
+    Returns {'train_losses', 'raw', 'trained', 'train_s', 'steps'}."""
+    import random
+    from abnet3_torch.dataloader import OriginalDataLoader
+    from abnet3_torch.embedder import EmbedderSiamese
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.models.siamese import SiameseNetwork
+    from abnet3_torch.sampler import SamplerClusterSiamese
+    from abnet3_torch.trainer import TrainerSiamese
+    from abnet3_torch.utils import Features_Accessor
+
+    feats, times, lines, tok_meta = learning_corpus()
+    os.makedirs(workdir, exist_ok=True)
+    classes = os.path.join(workdir, "words.classes")
+    with open(classes, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    spk = os.path.join(workdir, "spk.txt")
+    with open(spk, "w") as fh:
+        fh.writelines(f"spk{s}_f spk{s}\n" for s in range(LEARN_SPK))
+    raw = Features_Accessor(times, feats)
+    raw_err = abx_proxy(raw, tok_meta, np.random.RandomState(0))
+
+    np.random.seed(0)
+    random.seed(0)
+    pairs_dir = os.path.join(workdir, "pairs")
+    SamplerClusterSiamese(
+        std_file=classes, spkid_file=spk, directory_output=pairs_dir,
+        seed=0, max_size_cluster=20, ratio_train_dev=0.7,
+        ratio_same_diff_spk=0.5, ratio_same_diff_type=0.5,
+        type_sampling_mode="log", spk_sampling_mode="log",
+        num_total_sampled_pairs=600).sample()
+    net_kw = dict(input_dim=LEARN_D, num_hidden_layers=2, hidden_dim=64,
+                  output_dim=16, p_dropout=0.0, activation_layer="sigmoid",
+                  device=device)
+    net = SiameseNetwork(output_path=os.path.join(workdir, "network"),
+                         **net_kw)
+    loader = OriginalDataLoader(pairs_dir, None, batch_size=16,
+                                num_max_minibatches=8, seed=0,
+                                align_backend="bank", device=device)
+    loader.features = raw
+    trainer = TrainerSiamese(network=net, loss=coscos2(), dataloader=loader,
+                             optimizer_type="adam", lr=0.005, num_epochs=25,
+                             patience=30, seed=0, device=device,
+                             log_dir=os.path.join(workdir, "logs"))
+    steps = {"n": 0}
+    run_step = trainer._run_step
+
+    def counted(b, do_training):
+        steps["n"] += 1
+        return run_step(b, do_training)
+    trainer._run_step = counted
+    t0 = time.perf_counter()
+    trainer.train()
+    train_s = time.perf_counter() - t0
+
+    best = SiameseNetwork(**net_kw)
+    emb = EmbedderSiamese(network=best, network_path=net.output_path
+                          + ".pth", batch_size=512, device=device)
+    emb._load()
+    names = list(feats)
+    embedded = emb._embed_corpus(emb._forward_fn(),
+                                 [feats[f] for f in names])
+    trained = Features_Accessor(times, dict(zip(names, embedded)))
+    trained_err = abx_proxy(trained, tok_meta, np.random.RandomState(0))
+    return {"train_losses": trainer.train_losses, "raw": raw_err,
+            "trained": trained_err, "train_s": train_s, "steps": steps["n"]}
+
+
+def reachable(node, seen=None):
+    """Every value reachable from ``node`` through dicts, lists, tuples,
+    sets and object ``__dict__``s, each once."""
+    seen = set() if seen is None else seen
+    if id(node) in seen:
+        return
+    seen.add(id(node))
+    yield node
+    if isinstance(node, dict):
+        children = list(node.values())
+    elif isinstance(node, (list, tuple, set, frozenset)):
+        children = list(node)
+    elif hasattr(node, "__dict__") and not isinstance(node, type):
+        children = list(vars(node).values())
+    else:
+        children = []
+    for child in children:
+        yield from reachable(child, seen)
+
+
+def codec_bound(ref, codec, rows):
+    """JAX's round-trip bound of ``codec`` for each value of the float32
+    embeddings ``ref`` (the concatenated corpus), chunk by chunk of
+    ``rows``: one bf16 rounding (half an ulp), (hi - lo)/510 over the
+    chunk (int8), (hi_d - lo_d)/30 a dimension of the chunk (int4), each
+    plus 1e-6 for the float32 arithmetic of the decode."""
+    if codec == "bfloat16":
+        mag = np.maximum(np.abs(ref), np.float32(1e-30))
+        return 2.0 ** (np.floor(np.log2(mag)) - 8)
+    bound = np.empty_like(ref)
+    for c0 in range(0, len(ref), rows):
+        chunk = ref[c0:c0 + rows]
+        if codec == "int8":
+            bound[c0:c0 + rows] = (chunk.max() - chunk.min()) / 510
+        else:
+            bound[c0:c0 + rows] = ((chunk.max(0) - chunk.min(0))
+                                   / 30)[None, :]
+    return bound + 1e-6
+
+
+def phase_embed_path(network, loader, batch_size=5000, n_classes=128):
+    """The eval half of the recipe through the rest of the embedder
+    (ROADMAP A9, C5, A14), on the card, in memory:
+
+    (a) the corpus as a stream of (item, labels, frames) with a 0-frame
+        file first and one in the middle, through ``_embed_streaming``
+        (float32): every file equal to ``_embed_corpus``'s on the same
+        list; the multitask network's two heads the same way;
+    (b) each wire codec (bfloat16, int8, int4): the card's encode of a
+        chunk, decoded on the host, equal to the CPU's encode of the same
+        float32 chunk; the corpus within JAX's bound of the float32
+        embeddings; the wire's bytes a value from the leaves' ``nbytes``;
+        the streamed corpus timed after one warm-up pass;
+    (c) the int8-streamed embeddings cut into ``n_classes`` x 8 tokens
+        through ``distance_matrix(strategy="tiles", device_out=True)``:
+        the tile rule gives 1,024 tokens tiles of 256 (N/4), so
+        ``dtw_path_stats`` is launched once a row of each of the 10
+        upper tiles (2,560), and its ``abx_error_device`` stands beside
+        the float32 embeddings' on the same inventory;
+    (d) the main path's loader (its bank on the card) pickled: no tensor
+        in its state; unpickled, its bank rebuilt on the card and its
+        first seeded batch equal to the original's;
+    (e) the embed CLI where h5py is installed, else a line saying so;
+    (f) the learning check (``learning_check``) on the card: the train
+        loss falls, the trained ABX proxy under 0.7x the raw one.
+
+    Returns (``dtw_path_stats``'s launches on the int8 path, the learning
+    check's ``dtw_path`` launches, a closure streaming the corpus through
+    the int8 codec once, for the profile)."""
+    import importlib.util
+    import pickle
+    import random
+    from abnet3_torch.embedder import (EmbedderSiamese,
+                                       EmbedderSiameseMultitask,
+                                       decode_transfer, encode_transfer)
+    from abnet3_torch.eval.abx import _auto_block, distance_matrix
+    from abnet3_torch.eval.abx_device import abx_error_device
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_moves_cuda,
+                                           dtw_path_cuda,
+                                           dtw_path_stats_cuda)
+
+    t_phase = time.perf_counter()
+    features = loader.features
+    names = sorted(features.features, key=lambda f: int(f[1:]))
+    feats = [features.features[f] for f in names]
+    d_in = feats[0].shape[1]
+    mid = len(feats) // 2
+    empty = np.zeros((0, d_in), np.float32)
+    s_names = ["empty0"] + names[:mid] + ["empty1"] + names[mid:]
+    s_feats = [empty] + feats[:mid] + [empty] + feats[mid:]
+    n_frames = int(sum(len(f) for f in feats))
+
+    def stream_embed(emb, n_outputs=1):
+        got = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb._embed_streaming(
+            emb._forward_fn(),
+            ((n, None, f) for n, f in zip(s_names, s_feats)),
+            lambda item, labels, embs: got.append((item, embs)),
+            n_outputs=n_outputs)
+        seconds = time.perf_counter() - t0
+        if [item for item, _ in got] != s_names:
+            raise AssertionError("the stream's files came back out of "
+                                 "order")
+        return [e for _, e in got], seconds
+
+    def corpus_embed(emb, n_outputs=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = emb._embed_corpus(emb._forward_fn(), s_feats,
+                                n_outputs=n_outputs)
+        return out, time.perf_counter() - t0
+
+    reset_launches()
+    # (a) streaming == the corpus path, float32, both families
+    emb = EmbedderSiamese(network=network, batch_size=batch_size)
+    emb._load()
+    corpus32, corpus_s = corpus_embed(emb)
+    streamed32, stream_s = stream_embed(emb)
+    for i, (a, b) in enumerate(zip(streamed32, corpus32)):
+        if a[0].shape != b.shape or not np.array_equal(a[0], b):
+            raise AssertionError(f"streamed file {s_names[i]} differs "
+                                 "from the corpus path")
+    mt_net = multitask_network()
+    mt_net.ensure_init(0)
+    mt = EmbedderSiameseMultitask(network=mt_net, batch_size=batch_size)
+    mt._load()
+    mt_corpus, mt_corpus_s = corpus_embed(mt, n_outputs=2)
+    mt_stream, mt_stream_s = stream_embed(mt, n_outputs=2)
+    for h in range(2):
+        for i, f in enumerate(mt_stream):
+            if not np.array_equal(f[h], mt_corpus[h][i]):
+                raise AssertionError(f"multitask head {h}: streamed file "
+                                     f"{s_names[i]} differs")
+
+    # (b) the codecs
+    ref = np.concatenate(corpus32)
+    chunk = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate(feats)[:batch_size])).cuda()
+    out32 = emb._forward_fn()(chunk)[0][0]
+    codecs = {}
+    streamed = {}
+    for codec in ("bfloat16", "int8", "int4"):
+        card = encode_transfer(out32, codec)
+        cpu = encode_transfer(out32.cpu(), codec)
+        if not np.array_equal(decode_transfer(card), decode_transfer(cpu)):
+            raise AssertionError(f"{codec}: the card's encode differs from "
+                                 "the CPU's")
+        code_bytes = card[0].nbytes / out32.numel()
+        if code_bytes != {"bfloat16": 2.0, "int8": 1.0, "int4": 0.5}[codec]:
+            raise AssertionError(f"{codec}: {code_bytes} B a value")
+        c_emb = EmbedderSiamese(network=network, batch_size=batch_size,
+                                transfer_dtype=codec)
+        # the first pass pays the codec's own warm-up; the second is timed
+        _, cold_s = stream_embed(c_emb)
+        files, seconds = stream_embed(c_emb)
+        streamed[codec] = [f[0] for f in files]
+        got = np.concatenate(streamed[codec])
+        err = np.abs(got - ref)
+        over = float((err - codec_bound(ref, codec, batch_size)).max())
+        if over > 0:
+            raise AssertionError(f"{codec}: error above JAX's bound by "
+                                 f"{over}")
+        codecs[codec] = {
+            "embed_s": seconds, "embed_s_cold": cold_s,
+            "frames_per_s": n_frames / seconds,
+            "max_abs_err": float(err.max()), "code_bytes_per_value":
+            code_bytes, "wire_bytes_per_chunk": int(sum(
+                leaf.nbytes for leaf in card)),
+            "float32_bytes_per_chunk": out32.nbytes}
+
+    # (c) ABX through the stats kernel on the int8-streamed embeddings;
+    # the float32 twin on the same inventory is a comparison, run after
+    # the path's count is read
+    real = [i for i, n in enumerate(s_names) if not n.startswith("empty")]
+    scores = {}
+    for name, files in (("int8", streamed["int8"]),
+                        ("float32", [f[0] for f in streamed32])):
+        tokens, labels, speakers = eval_inventory(
+            [files[i] for i in real], n_classes=n_classes)
+        bank = TokenBank(tokens)
+        before = dtw_path_stats_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D, handle = distance_matrix(bank, "dtw_cos", batch_size=len(bank),
+                                    strategy="tiles", device_out=True)
+        torch.cuda.synchronize()
+        dist_s = time.perf_counter() - t0
+        launches = dtw_path_stats_cuda.launches - before
+        # the JAX package's tile rule caps a side at N/4 = 256 tokens for
+        # N = 1,024: one launch a row of each of the 10 upper tiles
+        block = _auto_block(len(bank), bank.max_len, len(bank))
+        side = -(-len(bank) // block)
+        if launches != 2560 or len(bank) != 8 * n_classes:
+            raise AssertionError(
+                f"{launches} stats launches for {len(bank)} tokens, "
+                f"predicted 2,560 (the port's tile rule gives "
+                f"{side * (side + 1) // 2} tiles of {block} rows)")
+        if name == "int8":
+            counts = {"dtw_path": dtw_path_cuda.launches,
+                      "dtw_path_stats": dtw_path_stats_cuda.launches,
+                      "dtw_moves": dtw_moves_cuda.launches,
+                      "dtw_costs": dtw_costs_cuda.launches}
+        score = abx_error_device(handle, labels, speakers, task="across")
+        if not math.isfinite(score["error"]) or score["n_cells"] == 0:
+            raise AssertionError(f"ABX score {score}")
+        scores[name] = {"abx_error_device": score["error"],
+                        "n_triplets": score["n_triplets"],
+                        "distance_s": dist_s, "stats_launches": launches,
+                        "tile_side": block, "tiles": side * (side + 1) // 2}
+    if counts != {"dtw_path": 0, "dtw_path_stats": scores["int8"][
+            "stats_launches"], "dtw_moves": 0, "dtw_costs": 0}:
+        raise AssertionError(f"embed_path launches {counts}")
+
+    # (d) the main path's loader through pickle
+    t0 = time.perf_counter()
+    state = loader.__getstate__()
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in reachable(state))
+    if n_tensors or state["token_bank"] is not None:
+        raise AssertionError(f"{n_tensors} tensors in the loader's state")
+    blob = pickle.dumps(loader)
+    restored = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    bank_device = loader.token_bank.bank.device
+    if restored.token_bank.bank.device != bank_device or not torch.equal(
+            restored.token_bank.bank, loader.token_bank.bank):
+        raise AssertionError("the restored bank is not the card's bank")
+    # the seeded pass leaves the main loader and the global generators as
+    # it found them, so the later phases draw the batches they drew before
+    saved = (loader._rng.get_state(), random.getstate(),
+             np.random.get_state(), dict(loader.statistics_training))
+    firsts = []
+    for dl in (loader, restored):
+        random.seed(0)
+        np.random.seed(0)
+        dl._rng = np.random.RandomState(0)
+        firsts.append(next(iter(dl.batch_iterator(train_mode=True))))
+    loader._rng.set_state(saved[0])
+    random.setstate(saved[1])
+    np.random.set_state(saved[2])
+    loader.statistics_training.clear()
+    loader.statistics_training.update(saved[3])
+    for a, b in zip(*firsts):
+        same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else np.array_equal(np.asarray(a), np.asarray(b)))
+        if not same:
+            raise AssertionError("the restored loader's first batch "
+                                 "differs")
+
+    # (e) the embed CLI
+    if importlib.util.find_spec("h5py") is None:
+        cli = {"skipped": "h5py not installed"}
+    else:
+        cli = run_embed_cli(network, names[:4], feats[:4],
+                            [corpus32[i] for i in real[:4]])
+
+    # (f) the learning check
+    reset_launches()
+    learn = learning_check(os.path.join(OUT, "learning"))
+    learn_launches = dtw_path_cuda.launches
+    if (dtw_moves_cuda.launches, dtw_costs_cuda.launches,
+            dtw_path_stats_cuda.launches) != (0, 0, 0):
+        raise AssertionError("the learning check ran another kernel")
+    losses = learn["train_losses"]
+    if not losses[-1] < losses[0] or \
+            not learn["trained"] < 0.7 * learn["raw"]:
+        raise AssertionError(f"the learning check failed: {learn}")
+    if learn_launches != learn["steps"]:
+        raise AssertionError(f"{learn_launches} dtw_path launches for "
+                             f"{learn['steps']} steps")
+    emit({"phase": "embed_path", "frames": n_frames,
+          "files": len(s_names), "embed_s_corpus": corpus_s,
+          "embed_s_streamed": stream_s,
+          "embed_s_multitask_corpus": mt_corpus_s,
+          "embed_s_multitask_streamed": mt_stream_s,
+          "codecs": codecs, "abx": scores, "launches": counts,
+          "pickle": {"state_tensors": n_tensors, "bytes": len(blob),
+                     "seconds": pickle_s, "bank_device": str(bank_device)},
+          "cli": cli,
+          "learning": {"raw_abx_proxy": learn["raw"],
+                       "trained_abx_proxy": learn["trained"],
+                       "first_train_loss": losses[0],
+                       "last_train_loss": losses[-1],
+                       "steps": learn["steps"], "train_s": learn["train_s"],
+                       "dtw_path_launches": learn_launches},
+          "seconds": time.perf_counter() - t_phase})
+    int8 = EmbedderSiamese(network=network, batch_size=batch_size,
+                           transfer_dtype="int8")
+
+    def embed_run():
+        stream_embed(int8)
+    return counts["dtw_path_stats"], learn_launches, embed_run
+
+
+def run_embed_cli(network, names, feats, want, device=None):
+    """``python -m abnet3_torch.tools.embed_cli``'s ``main`` on a YAML of
+    the flagship network, the network's ``.pth`` and an h5features file
+    of ``feats``: the output must equal ``want`` (the embedder's float32
+    corpus path on the same files) within atol 1e-5."""
+    import yaml
+    from abnet3_torch.io.h5f import read_h5features, write_h5features
+    from abnet3_torch.tools.embed_cli import main as embed_main
+    root = os.path.join(OUT, "embed_cli")
+    os.makedirs(root, exist_ok=True)
+    feats_path = os.path.join(root, "feats.h5f")
+    write_h5features(feats_path, "features", names,
+                     [np.arange(len(f)) * 0.01 + 0.0025 for f in feats],
+                     feats)
+    saved_path = network.output_path
+    network.output_path = os.path.join(root, "network")
+    network.save_network()
+    network.output_path = saved_path
+    on = {} if device is None else {"device": device}
+    cuda = {} if device is None else {"cuda": False}
+    params = {"pathname_experience": root,
+              "model": {"class": "SiameseNetwork", "arguments": dict(
+                  input_dim=280, num_hidden_layers=2, hidden_dim=500,
+                  output_dim=100, p_dropout=0.0, activation_layer="sigmoid",
+                  **on)},
+              "embedder": {"class": "EmbedderSiamese", "arguments": dict(
+                  batch_size=5000, streaming=True, **cuda)}}
+    yml = os.path.join(root, "exp.yaml")
+    with open(yml, "w") as fh:
+        yaml.safe_dump({"default_params": params}, fh)
+    out = os.path.join(root, "emb.h5f")
+    t0 = time.perf_counter()
+    embed_main([yml, "-w", os.path.join(root, "network.pth"), "-i",
+                feats_path, "-o", out])
+    seconds = time.perf_counter() - t0
+    got = read_h5features(out)
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(got.features(), want))
+    if got.items() != list(names) or diff > 1e-5:
+        raise AssertionError(f"embed CLI: items {got.items()}, max diff "
+                             f"{diff}")
+    return {"files": len(names), "seconds": seconds, "max_abs_diff": diff}
+
+
 def phase_gridsearch(wavdir, classes, spk, device=None):
     """``abnet3_torch.gridsearch.GridSearch`` on a small flagship YAML over
     the same wavs (features on the card, 2,000 pairs, one epoch, embed,
@@ -2470,6 +2985,8 @@ def main():
     opt_launches = phase_optimizers(trainer, loader)
     bank, stats_launches, costs_eval, score_run = phase_eval_path(
         trainer.network, loader.features)
+    embed_stats, learn_launches, embed_run = phase_embed_path(
+        trainer.network, loader)
     # no path runs the cost kernel: each path phase reads its count
     costs_launches = (costs_main + costs_gather + costs_eval
                       + sum(by_path["dtw_costs"].values())
@@ -2477,7 +2994,9 @@ def main():
     path_by_path = {"main_path": launches, **by_path["dtw_path"],
                     "sampled_path": sampled["dtw_path"],
                     "multitask_path": multitask["dtw_path"],
-                    "optimizers": opt_launches}
+                    "optimizers": opt_launches,
+                    "embed_path_learning": learn_launches}
+    stats_by_path = {"eval_path": stats_launches, "embed_path": embed_stats}
     moves_by_path = {"gather_path": moves_launches, **by_path["dtw_moves"],
                      "sampled_gather": sampled["dtw_moves"],
                      "multitask_path": multitask["dtw_moves"]}
@@ -2496,6 +3015,7 @@ def main():
                   per="step")
     phase_profile("abx_tile", abx_tile_run(bank), reps=1, per_row=1024)
     phase_profile("abx_score", score_run, reps=1)
+    phase_profile("embed_stream_int8", embed_run, reps=1)
     emit({"kernels": [
         kernel_line("dtw_path", "abnet3_torch/csrc/dtw_path.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:227", [32, 96, 96],
@@ -2503,8 +3023,9 @@ def main():
                     launches_by_path=path_by_path),
         kernel_line("dtw_path_stats", "abnet3_torch/csrc/dtw_path_stats.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:511",
-                    [bank.max_len, 1024, bank.max_len], stats_launches,
-                    stats_err, stats_row),
+                    [bank.max_len, 1024, bank.max_len],
+                    sum(stats_by_path.values()), stats_err, stats_row,
+                    launches_by_path=stats_by_path),
         kernel_line("dtw_moves", "abnet3_torch/csrc/dtw_moves.cu",
                     "abnet3_tpu/ops/pallas_dtw.py:190", [32, 128, 128],
                     sum(moves_by_path.values()), moves_err,

@@ -679,3 +679,102 @@ def test_lbfgs_step_on_the_card_matches_the_cpu(cuda_device):
         for k in cpu[3][layer]:
             diff = abs(card[3][layer][k] - cpu[3][layer][k]).max()
             assert diff <= 1e-5, (layer, k, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bfloat16", "int8", "int4"])
+def test_codec_on_the_card_equals_the_cpu(cuda_device, codec):
+    """The card's encode of a float32 chunk, decoded on the host, equals
+    the CPU's encode of the same chunk, decoded the same way; every leaf
+    is equal too (odd d: int4's pad column)."""
+    from abnet3_torch.embedder import decode_transfer, encode_transfer
+    g = torch.Generator().manual_seed(20)
+    x = torch.rand(5000, 101, generator=g)
+    card = encode_transfer(x.to(cuda_device), codec)
+    cpu = encode_transfer(x, codec)
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+    assert (decode_transfer(card) == decode_transfer(cpu)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["float32", "int8"])
+def test_streaming_on_the_card_equals_the_corpus_path(cuda_device, codec):
+    """An in-memory stream with empty files first and in the middle:
+    every file's embeddings equal the corpus path's on the card (the
+    same chunks, so the same GEMMs and, for int8, the same scales)."""
+    from abnet3_torch.embedder import EmbedderSiamese
+    from abnet3_torch.models.siamese import SiameseNetwork
+    rng = torch.Generator().manual_seed(21)
+    lens = [0, 700, 333, 0, 1200, 41]
+    feats = [torch.randn(n, 40, generator=rng).numpy() for n in lens]
+    net = SiameseNetwork(input_dim=40, num_hidden_layers=1, hidden_dim=64,
+                         output_dim=16, p_dropout=0.0,
+                         activation_layer="sigmoid", device=cuda_device)
+    emb = EmbedderSiamese(network=net, batch_size=512, transfer_dtype=codec)
+    emb._load()
+    full = emb._embed_corpus(emb._forward_fn(), feats)
+    got = []
+    emb._embed_streaming(
+        emb._forward_fn(),
+        ((f"f{i}", None, f) for i, f in enumerate(feats)),
+        lambda item, labels, embs: got.append((item, embs[0])))
+    assert [item for item, _ in got] == [f"f{i}" for i in range(len(lens))]
+    for (_, a), b in zip(got, full):
+        assert a.shape == b.shape and (a == b).all()
+
+
+@pytest.mark.cuda
+def test_loader_pickle_on_the_card_holds_no_tensor(cuda_device, tmp_path):
+    """A bank loader on the card pickles without a tensor and rebuilds
+    its bank on the card; the first seeded batch is the original's."""
+    import pickle
+    import random
+    import numpy as np
+    from abnet3_torch.dataloader import OriginalDataLoader
+    from abnet3_torch.utils import Features_Accessor
+    rng = np.random.RandomState(22)
+    feats = {f"f{i}": rng.randn(80, 4).astype(np.float32) for i in range(3)}
+    times = {f: np.arange(80) * 0.01 + 0.0025 for f in feats}
+    pairs = {"train": [("f0", 0.0, 0.2, "f1", 0.1, 0.3, "same"),
+                       ("f1", 0.3, 0.5, "f2", 0.0, 0.1, "diff"),
+                       ("f2", 0.2, 0.4, "f0", 0.4, 0.6, "same")],
+             "dev": [("f0", 0.5, 0.7, "f2", 0.5, 0.6, "diff")]}
+    loader = OriginalDataLoader(None, None, batch_size=2, seed=0,
+                                align_backend="bank", tcl=0.2)
+    loader.features = Features_Accessor(times, feats)
+    loader.pairs = pairs
+    loader.load_data()
+    assert loader.token_bank.bank.device.type == "cuda"
+    from chip_smoke import reachable
+    blob = pickle.dumps(loader)
+    state = loader.__getstate__()
+    assert state["token_bank"] is None and state["frame_bank"] is None
+    assert not any(isinstance(v, torch.Tensor) for v in reachable(state))
+    restored = pickle.loads(blob)
+    assert restored.token_bank.bank.device.type == "cuda"
+    assert torch.equal(restored.token_bank.bank, loader.token_bank.bank)
+    batches = []
+    for dl in (loader, restored):
+        random.seed(0)
+        np.random.seed(0)
+        dl._rng = np.random.RandomState(0)
+        batches.append(next(iter(dl.batch_iterator(train_mode=True))))
+    for a, b in zip(*batches):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
+def test_pipeline_learns_on_the_card(cuda_device, tmp_path):
+    """tests/test_torch_quality.py's siamese case on the card (ROADMAP
+    A14): the train loss falls and the trained ABX proxy is under 0.7x
+    the raw features'."""
+    from chip_smoke import learning_check
+    out = learning_check(str(tmp_path))
+    losses = out["train_losses"]
+    assert losses[-1] < losses[0]
+    assert out["trained"] < out["raw"] * 0.7

@@ -28,6 +28,7 @@ SLICE_MODULES = [
     "abnet3_torch.eval.abx_device",
     "abnet3_torch.ops.dsp", "abnet3_torch.features", "abnet3_torch.model",
     "abnet3_torch.gridsearch", "abnet3_torch.profiling",
+    "abnet3_torch.tools", "abnet3_torch.tools.embed_cli",
     "chip_smoke",
 ]
 
