@@ -27,7 +27,9 @@ KNN pair files),
 ``TemporalCoherenceDataLoader`` (temporal-coherence pairs only, word
 pairs for the dev pass) and ``FramesDataLoader`` (every pair aligned
 once, frame-index batches against a device frame table,
-:class:`FrameBankBatch`) build on it. ``OnDeviceSamplerDataLoader``
+:class:`FrameBankBatch`) build on it; ``MultimodalDataLoader`` is a
+``FramesDataLoader`` over several feature sets, aligned on the first,
+with one frame table per modality. ``OnDeviceSamplerDataLoader``
 reads no pair file: it holds a token bank and the sampler's
 distributions on the device per split, and the trainer's sampled steps
 draw their pairs there.
@@ -59,8 +61,8 @@ from abnet3_torch.utils import (Features_Accessor, get_dtw_alignment,
 __all__ = ["Batch", "BankBatch", "SplitBankBatch", "FrameBankBatch",
            "DataLoader", "OriginalDataLoader", "PairsDataLoader",
            "TemporalCoherenceDataLoader", "FramesDataLoader",
-           "MultiTaskDataLoader", "OnDeviceSamplerDataLoader",
-           "prefetch_iterator"]
+           "MultiTaskDataLoader", "MultimodalDataLoader",
+           "OnDeviceSamplerDataLoader", "prefetch_iterator"]
 
 
 class Batch(NamedTuple):
@@ -1303,6 +1305,118 @@ class MultiTaskDataLoader(OriginalDataLoader):
                 X1, X2, y_spk, y_phn = self.load_frames_from_pairs(
                     grouped, fid2spk=fid2spk)
                 yield self._host_batch(X1, X2, y_phn, y_spk)
+
+
+class MultimodalDataLoader(FramesDataLoader):
+    """Frame batches over several feature sets, one per modality
+    (reference dataloader.py:794-980): ``features_path`` is a list, and
+    ``features_dict`` maps each of its entries to a
+    :class:`~abnet3_torch.utils.Features_Accessor` (read from the files,
+    or set by the caller before :meth:`load_data`). The pairs are aligned
+    on the first modality only (:meth:`FramesDataLoader.load_all_frames`,
+    one move-kernel launch per chunk of ``align_chunk`` same pairs on the
+    card); the other modalities' token tables take the same row layout,
+    which needs equal per-token frame counts across modalities (as the
+    reference assumes; a mismatch raises). The device and bank backends
+    yield :class:`FrameBankBatch`es against one device table per
+    modality (:meth:`frame_tables`); the host backend yields
+    :class:`Batch`es whose ``x1``/``x2`` are per-modality lists."""
+
+    _HEAVY_MODE_DICTS = FramesDataLoader._HEAVY_MODE_DICTS + (
+        "token_tables",)
+
+    def __init__(self, pairs_path, features_path, batch_size=500,
+                 randomize_dataset=False, max_batches_per_epoch=None,
+                 align_backend="device", steps_per_call=8, align_chunk=256,
+                 device=None):
+        assert isinstance(features_path, (list, tuple)), \
+            "MultimodalDataLoader takes a list of feature paths"
+        super().__init__(pairs_path, features_path, batch_size,
+                         randomize_dataset, max_batches_per_epoch,
+                         align_backend=align_backend, align_chunk=align_chunk,
+                         steps_per_call=steps_per_call, device=device)
+        self.features_dict = None
+        self.token_tables = {"train": None, "dev": None}
+        self._read_features = False
+
+    def __getstate__(self):
+        d = super().__getstate__()
+        if self._read_features:  # load_data() reads them again
+            d["features_dict"] = None
+        return d
+
+    def load_data(self):
+        if self.features_dict is None:
+            print("Loading features")
+            self.features_dict = {}
+            for path in self.features_path:
+                self.features_dict[path], _, _ = read_feats(path)
+            self._read_features = True
+        if self.pairs["train"] is None:
+            print("Loading word pairs")
+            self.pairs["train"] = read_dataset(
+                os.path.join(self.pairs_path, "train_pairs/dataset"))
+            self.pairs["dev"] = read_dataset(
+                os.path.join(self.pairs_path, "dev_pairs/dataset"))
+        for mode in ("train", "dev"):
+            if self.token_tables[mode] is None:
+                # alignment on the first modality
+                first = self.features_path[0]
+                self.features = self.features_dict[first]
+                table0, frames = self.load_all_frames(self.pairs[mode])
+                _, _, offsets0, _ = self._token_table(self.pairs[mode])
+                tables = [table0]
+                # the same token row layout for the other modalities
+                for path in self.features_path[1:]:
+                    self.features = self.features_dict[path]
+                    _, feats, offsets, table = self._token_table(
+                        self.pairs[mode])
+                    if offsets != offsets0 or len(table) != len(table0):
+                        bad = next((k for k in feats
+                                    if offsets.get(k) != offsets0.get(k)),
+                                   None)
+                        raise ValueError(
+                            f"modality {path!r} has {len(table)} token "
+                            f"frames ({mode}) where {first!r} has "
+                            f"{len(table0)} (first differing token near "
+                            f"{bad}): MultimodalDataLoader needs equal "
+                            "per-token frame counts across modalities")
+                    tables.append(table)
+                self.token_tables[mode] = tables
+                self.frame_pairs[mode] = frames
+
+    def frame_tables(self, train_mode=True):
+        """One table per modality on the loader's device, each copied
+        once."""
+        from abnet3_torch.ops.bank import upload_rows
+        self.load_data()
+        mode = "train" if train_mode else "dev"
+        if self._tables_dev.get(mode) is None:
+            self._tables_dev[mode] = tuple(
+                upload_rows(np.asarray(t), device=self.device)
+                for t in self.token_tables[mode])
+        return self._tables_dev[mode]
+
+    def batch_iterator(self, train_mode=True):
+        self.load_data()
+        mode = "train" if train_mode else "dev"
+        if self.align_backend != "host":
+            self.frame_tables(train_mode)
+            yield from self._index_batches(mode)
+            return
+        dev = resolve_device(self.device)
+        frames = self.frame_pairs[mode]
+        tables = self.token_tables[mode]
+        num_batches = max(len(frames) // self.batch_size, 1)
+        for i in self._epoch_batch_ids(mode, num_batches):
+            chunk = frames[i * self.batch_size:(i + 1) * self.batch_size]
+            if len(chunk) == 0:
+                continue
+            x1 = [torch.from_numpy(t[chunk[:, 0]]).to(dev) for t in tables]
+            x2 = [torch.from_numpy(t[chunk[:, 1]]).to(dev) for t in tables]
+            y = torch.from_numpy(chunk[:, 2].astype(np.float32)).to(dev)
+            yield Batch(x1, x2, y, torch.ones(len(chunk), dtype=torch.float32,
+                                              device=dev))
 
 
 class OnDeviceSamplerDataLoader(OriginalDataLoader):

@@ -17,8 +17,13 @@ input file item by item and appends each file's embeddings as soon as
 its last chunk is back, so memory stays bounded by the chunks in flight
 and one file, whatever the corpus size.
 
+``MultimodalEmbedder`` feeds one chunk of every modality to the
+multimodal network's forward (each modality cut at the same frame
+boundaries) and writes the embeddings and, for a learnt attention unit,
+the attention weights.
+
 Not ported yet (it raises ``NotImplementedError``): the data-parallel
-``mesh`` (ROADMAP A11); the multimodal embedder waits for A10.
+``mesh`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -29,10 +34,10 @@ import numpy as np
 import torch
 
 from abnet3_torch.profiling import stage_trace
-from abnet3_torch.utils import resolve_device
+from abnet3_torch.utils import EmbeddingObserver, resolve_device
 
 __all__ = ["EmbedderBuilder", "EmbedderSiamese", "EmbedderSiameseMultitask",
-           "encode_transfer", "decode_transfer"]
+           "MultimodalEmbedder", "encode_transfer", "decode_transfer"]
 
 _WINDOW = 16       # encoded chunks in flight on the device before a drain
 _FLUSH_EVERY = 32  # finished files a streaming writer appends at once
@@ -207,7 +212,10 @@ class EmbedderBuilder:
                          n_outputs: int = 1):
         """Embed a stream of files through fixed-size padded chunks.
 
-        ``stream`` yields ``(item, labels, frames)``; each file's decoded
+        ``stream`` yields ``(item, labels, frames)``, ``frames`` one array
+        or a tuple of one array per modality (equal frame counts: every
+        modality is cut at the same rows, and ``forward`` takes one chunk
+        per modality); each file's decoded
         embeddings go to ``on_file_done(item, labels, [per-head arrays])``
         as soon as its last chunk drains. PACKED: the files' frames form
         one stream and chunks are cut from it across file boundaries
@@ -230,10 +238,10 @@ class EmbedderBuilder:
         device = self.network.device
         pending = []   # (spans, valid_rows, encoded heads)
         live = {}      # file_seq -> [item, labels, [parts]*heads, n_left]
-        buf = []       # [(file_seq, rows-array)] not yet dispatched
+        buf = []       # [(file_seq, per-modality rows)] not dispatched
         buf_rows = 0
         head_dims = [None] * n_outputs
-        in_dim = None  # feature dim, for the all-empty-stream probe
+        in_dims = None  # feature dims, for the all-empty-stream probe
 
         def emit_ready():
             # emit completed files from the front of `live` (insertion =
@@ -273,37 +281,47 @@ class EmbedderBuilder:
             nonlocal buf_rows
             spans, pieces, got = [], [], 0
             while got < valid:
-                seq, rows = buf[0]
-                take = min(len(rows), valid - got)
+                seq, mods = buf[0]
+                n = len(mods[0])
+                take = min(n, valid - got)
                 spans.append((seq, take))
-                pieces.append(rows[:take])
-                if take == len(rows):
+                pieces.append([m[:take] for m in mods])
+                if take == n:
                     buf.pop(0)
                 else:
-                    buf[0] = (seq, rows[take:])
+                    buf[0] = (seq, tuple(m[take:] for m in mods))
                 got += take
             buf_rows -= valid
-            chunk = pieces[0] if len(pieces) == 1 else np.vstack(pieces)
             target = bs if valid == bs else self._pad_target(valid)
-            if target > valid:
-                chunk = np.vstack([chunk, np.repeat(
-                    chunk[-1:], target - valid, axis=0)])
-            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
-            pending.append((spans, valid, forward(x)))
+            xs = []
+            for k in range(len(pieces[0])):
+                chunk = (pieces[0][k] if len(pieces) == 1
+                         else np.vstack([p[k] for p in pieces]))
+                if target > valid:
+                    chunk = np.vstack([chunk, np.repeat(
+                        chunk[-1:], target - valid, axis=0)])
+                xs.append(torch.from_numpy(
+                    np.ascontiguousarray(chunk)).to(device))
+            pending.append((spans, valid, forward(*xs)))
             if len(pending) >= _WINDOW:
                 drain_one()
 
         for seq, (item, labels, feat) in enumerate(stream):
-            feat = np.asarray(feat, np.float32)
-            if feat.ndim == 2:
-                in_dim = feat.shape[1]
-            live[seq] = [item, labels,
-                         [[] for _ in range(n_outputs)], len(feat)]
-            if len(feat) == 0:
+            mods = tuple(np.asarray(m, np.float32) for m in (
+                feat if isinstance(feat, tuple) else (feat,)))
+            n = len(mods[0])
+            if any(len(m) != n for m in mods):
+                raise ValueError(f"{item}: the modalities have "
+                                 f"{[len(m) for m in mods]} frames; they "
+                                 "must have the same frame count")
+            if all(m.ndim == 2 for m in mods):
+                in_dims = [m.shape[1] for m in mods]
+            live[seq] = [item, labels, [[] for _ in range(n_outputs)], n]
+            if n == 0:
                 emit_ready()
                 continue
-            buf.append((seq, feat))
-            buf_rows += len(feat)
+            buf.append((seq, mods))
+            buf_rows += n
             while buf_rows >= bs:
                 dispatch(bs)
         if buf_rows:
@@ -314,10 +332,10 @@ class EmbedderBuilder:
             # only 0-frame files can remain: the stream never ran a
             # forward (all files empty), so probe one ladder-rung zero
             # chunk for the head dims
-            if head_dims[0] is None and in_dim is not None:
-                heads = forward(torch.zeros(
-                    (self._pad_target(1), in_dim), dtype=torch.float32,
-                    device=device))
+            if head_dims[0] is None and in_dims is not None:
+                heads = forward(*(torch.zeros(
+                    (self._pad_target(1), d), dtype=torch.float32,
+                    device=device) for d in in_dims))
                 for h, head in enumerate(heads):
                     head_dims[h] = decode_transfer(head).shape[1]
             if head_dims[0] is None:
@@ -386,6 +404,107 @@ class EmbedderSiameseMultitask(EmbedderBuilder):
     def embed(self):
         self._load()
         self._embed_file(self._forward_fn(), (".spk", ".phn"))
+
+
+class MultimodalEmbedder(EmbedderBuilder):
+    """Multimodal embedding export (reference embedder.py:151-221):
+    ``feature_path`` is one h5features file per modality, joined by item
+    name; writes ``output_path + "embedded.features"`` and, when the unit
+    is a ``BiWeightedDeepLearnt`` (an observer is placed), the attention
+    weights to ``output_path + "attention_weights.features"``, (frames, 1)
+    a file. The forward returns the weights with the embeddings; a unit
+    frozen to its headstart scalar gives that scalar on every frame.
+    ``transfer_dtype`` applies to both. :meth:`embed_modalities` embeds
+    in-memory per-modality lists."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.observers = []
+        from abnet3_torch.integration import BiWeightedDeepLearnt
+        if isinstance(getattr(self.network, "integration_unit", None),
+                      BiWeightedDeepLearnt):
+            print("Placing observer to save learnt attention weights")
+            self.observers.append(EmbeddingObserver(
+                self.network.integration_unit.get_weights,
+                self.output_path + "attention_weights.features"))
+
+    def _forward_fn(self):
+        """One chunk per modality -> (embeddings[, attention weights]),
+        each encoded by :func:`encode_transfer`."""
+        network = self.network
+        unit = network.integration_unit
+        want_attention = bool(self.observers)
+        transfer_dtype = self.transfer_dtype
+
+        @torch.no_grad()
+        def forward(*xs):
+            was_training = network.training
+            network.eval()
+            try:
+                if want_attention:
+                    unit._last_weight = None
+                emb = network.forward_once(list(xs))
+            finally:
+                network.train(was_training)
+            heads = [encode_transfer(emb, transfer_dtype)]
+            if want_attention:
+                # None: the unit is frozen to a scalar (headstart)
+                w = unit._last_weight
+                if w is None:
+                    w = torch.full((xs[0].shape[0], 1),
+                                   float(unit.get_weights()),
+                                   device=emb.device)
+                heads.append(encode_transfer(w, transfer_dtype))
+            return tuple(heads)
+
+        return forward
+
+    def embed_modalities(self, modalities):
+        """Embed in-memory features: ``modalities`` holds, per modality,
+        one (frames, d_m) array per file, the files in the same order.
+        Returns (embeddings per file, attention weights per file or
+        None)."""
+        feats_list = [tuple(col[i] for col in modalities)
+                      for i in range(len(modalities[0]))]
+        if self.observers:
+            embs, weights = self._embed_corpus(self._forward_fn(),
+                                               feats_list, n_outputs=2)
+            return embs, weights
+        return self._embed_corpus(self._forward_fn(), feats_list), None
+
+    def embed(self):
+        from abnet3_torch.io.h5f import read_h5features, write_h5features
+        self._load()
+        if self.streaming:
+            print("WARNING: streaming=True is not supported by "
+                  "MultimodalEmbedder (modalities must be joined per "
+                  "item); loading the full corpora instead")
+        datasets = [read_h5features(p, "features")
+                    for p in self.feature_path]
+        items = datasets[0].items()
+        times = datasets[0].labels()
+        print("Done loading input feature file")
+        # join the modalities by item name, not by file position
+        cols = [datasets[0].features()]
+        for p, d in zip(self.feature_path[1:], datasets[1:]):
+            idx = {it: i for i, it in enumerate(d.items())}
+            absent = [it for it in items if it not in idx]
+            if absent:
+                raise KeyError("items in %s missing from modality file "
+                               "%s: %s" % (self.feature_path[0], p,
+                                           absent[:5]))
+            fs = d.features()
+            cols.append([fs[idx[it]] for it in items])
+        with stage_trace("embed"):
+            embeddings, weights = self.embed_modalities(cols)
+        path = self.output_path + "embedded.features"
+        if os.path.exists(path):
+            os.remove(path)
+        write_h5features(path, "features", items, times, embeddings)
+        if weights is not None:
+            for observer in self.observers:
+                observer.record_arrays(weights)
+                observer.save(items, times)
 
 
 class _BatchedWriter:

@@ -43,11 +43,8 @@ import abnet3_torch.trainer
 __all__ = ["GridSearch", "main"]
 
 # classes of the JAX package's stage modules not ported yet, with the
-# ROADMAP.md item that ports them
-_UNPORTED = {
-    "MultimodalSiameseNetwork": "A10", "MultimodalDataLoader": "A10",
-    "MultimodalTrainer": "A10", "MultimodalEmbedder": "A10",
-}
+# ROADMAP.md item that ports them (every stage class is ported)
+_UNPORTED: Dict[str, str] = {}
 
 
 def _stage_class(module, name):
@@ -291,7 +288,8 @@ class GridSearch:
         :func:`abnet3_torch.eval.abx.evaluate` as they are
         (``score_backend``, ``checkpoint_path``, ``device_rows_per_block``
         and ``device`` among them). The multitask embedder's phone head
-        (``.phn``), the subword stream, is the one scored."""
+        (``.phn``), the subword stream, is the one scored; the multimodal
+        embedder's ``embedded.features``."""
         abx_prop = single_experiment.get("abx")
         if not abx_prop or abx_prop.get("run", "always") == "never":
             return
@@ -313,6 +311,9 @@ class GridSearch:
             if isinstance(embedder,
                           abnet3_torch.embedder.EmbedderSiameseMultitask):
                 emb_path += ".phn"
+            elif isinstance(embedder,
+                            abnet3_torch.embedder.MultimodalEmbedder):
+                emb_path += "embedded.features"
         result = evaluate(emb_path, classes, **args)
         out = os.path.join(single_experiment["pathname_experience"],
                            "abx.json")

@@ -22,7 +22,7 @@ from torch import nn
 from abnet3_torch.nn import ForwardReplay, Tower, TowerSpec
 from abnet3_torch.serialize import load_pytree, save_pytree
 from abnet3_torch.utils import resolve_device
-from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+from abnet3_torch.weights import JaxLayout, load_jax_numpy, to_jax_numpy
 
 __all__ = ["NetworkBuilder", "SiameseNetwork", "SiameseMultitaskNetwork"]
 
@@ -60,6 +60,13 @@ class NetworkBuilder(nn.Module):
         a tower whose layers sit at the top of the tree."""
         raise NotImplementedError(
             "Unimplemented jax_towers for class:", self.__class__.__name__)
+
+    def jax_layout(self) -> JaxLayout:
+        """Where every parameter sits in the JAX package's tree (see
+        :mod:`abnet3_torch.weights`): by default the towers of
+        :meth:`jax_towers`, each with its batch-norm state."""
+        return JaxLayout([((() if k is None else (k,)), t, True)
+                          for k, t in self.jax_towers()])
 
     @property
     def device(self) -> torch.device:

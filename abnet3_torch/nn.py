@@ -133,15 +133,39 @@ class Tower(nn.Module):
     ``update_stats`` is False (see :class:`ForwardReplay`)."""
 
     def __init__(self, spec: TowerSpec, device=None,
-                 bn_momentum: float = 0.1, bn_eps: float = 1e-5):
+                 bn_momentum: float = 0.1, bn_eps: float = 1e-5,
+                 layers: Optional[Sequence[Dense]] = None):
         super().__init__()
         self.spec = spec
         self.bn_momentum = bn_momentum
         self.bn_eps = bn_eps
         self.update_stats = True
-        self.layers = nn.ModuleList(
-            Dense(spec.dims[i], spec.dims[i + 1], spec.batch_norm, device)
-            for i in range(spec.num_layers))
+        if layers is None:
+            layers = (Dense(spec.dims[i], spec.dims[i + 1], spec.batch_norm,
+                            device) for i in range(spec.num_layers))
+        self.layers = nn.ModuleList(layers)
+
+    def sliced(self, start: Optional[int] = None,
+               end: Optional[int] = None) -> "Tower":
+        """The block range [start, end] (inclusive) of this tower, as a
+        tower sharing its parameters and buffers (no copy), the
+        counterpart of the JAX package's ``Tower.sliced`` (reference
+        integration.py:523-543 keeps child[start:end+1] of the unrolled
+        net; here the unit is one Linear->Dropout->[BN]->activation
+        block). A falsy start means 0, a None end the last block."""
+        n = self.spec.num_layers
+        s = int(start) if start else 0
+        e = int(end) if end is not None else n - 1
+        assert 0 <= s <= e < n, \
+            f"trim range [{s}, {e}] outside tower of {n} blocks"
+        spec = self.spec
+        sub = TowerSpec(spec.dims[s:e + 2], spec.activations[s:e + 1],
+                        p_dropout=spec.p_dropout,
+                        batch_norm=spec.batch_norm,
+                        type_init=spec.type_init,
+                        gain_activation=spec.gain_activation)
+        return Tower(sub, bn_momentum=self.bn_momentum, bn_eps=self.bn_eps,
+                     layers=self.layers[s:e + 1])
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -162,14 +186,20 @@ class Tower(nn.Module):
                 layer.bn_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, weights: torch.Tensor = None,
-                generator: torch.Generator = None) -> torch.Tensor:
+                generator: torch.Generator = None,
+                save_partials: bool = False):
         """``weights`` (N,) marks valid rows: padded frames of ragged
         device batches stay out of the batch-norm statistics (the
         reference never pads, so its BN only ever sees real frames).
-        ``generator`` draws the dropout masks."""
+        ``generator`` draws the dropout masks. With ``save_partials``
+        returns (out, partials), partials the input of each Linear layer
+        (the multimodal attention's inputs, reference utils.py:313-352)."""
         spec = self.spec
         drop = self.training and spec.p_dropout > 0.0
+        partials = []
         for i, layer in enumerate(self.layers):
+            if save_partials:
+                partials.append(x)
             x = x @ layer.w + layer.b
             if drop:
                 keep = 1.0 - spec.p_dropout
@@ -189,6 +219,8 @@ class Tower(nn.Module):
                 x = ((x - mean) * torch.rsqrt(var + self.bn_eps)
                      * layer.bn_scale + layer.bn_bias)
             x = ACTIVATIONS[spec.activations[i]](x)
+        if save_partials:
+            return x, partials
         return x
 
     @staticmethod

@@ -26,7 +26,8 @@ reduces each head's cells under the same alignment masks.
   rescaled so that the group carries exactly tcl/(1-tcl) of the token
   pairs' total weight (reference dataloader.py:314-322);
 - :func:`make_frame_train_step`: frame-index batches against a device
-  frame table (``FrameBankBatch``);
+  frame table, or one table per modality for the multimodal network
+  (``FrameBankBatch``);
 - :func:`make_fused_train_step`: raw padded same/diff token batches;
 - :func:`make_frame_pair_steps`: aligned frame pairs (``Batch``);
 - :func:`make_sampled_train_step` and :func:`make_sampled_eval_step`: the
@@ -627,19 +628,20 @@ def make_pair_train_step(network, loss, optimizer, bank,
 
 def make_frame_train_step(network, loss, optimizer, tables,
                           multimodal: bool = False):
-    """Train/eval steps over FrameBankBatch index batches against a
-    device frame table: both take (i1, i2, y, w), gather X1 = table[i1]
-    and X2 = table[i2] and run the frame-pair step; weight-0 rows stay
-    out of the loss and the batch-norm statistics. ``tables`` holds one
-    (N, d) tensor; several modalities (``multimodal=True``) are not
-    ported yet."""
-    if multimodal:
-        raise NotImplementedError(
-            "multimodal frame tables (MultimodalDataLoader) are not ported "
-            "to abnet3_torch yet (ROADMAP.md A10)")
-    (table,) = tuple(tables)
+    """Train/eval steps over FrameBankBatch index batches against device
+    frame tables: both take (i1, i2, y, w), gather X1 = table[i1] and X2
+    = table[i2] and run the frame-pair step; weight-0 rows stay out of
+    the loss and the batch-norm statistics. ``tables`` holds one (N, d)
+    tensor per modality; with ``multimodal=True`` each side is the list
+    ``[t[i] for t in tables]`` (``MultimodalSiameseNetwork.forward`` takes
+    lists, even of one modality), else the one table's rows."""
+    tables = tuple(tables)
+    if not multimodal:
+        (table,) = tables
 
     def gather(i1, i2, y, w):
+        if multimodal:
+            return [t[i1] for t in tables], [t[i2] for t in tables], y, w
         return table[i1], table[i2], y, w
 
     return _gather_steps(network, loss, optimizer, gather)

@@ -1,7 +1,8 @@
 """Trainers: the epoch loop and early stopping around the train step.
 
-The counterpart of ``abnet3_tpu/trainer.py`` for ``TrainerSiamese`` and
-``TrainerSiameseMultitask`` on the batches of the pair-file loaders of
+The counterpart of ``abnet3_tpu/trainer.py`` for ``TrainerSiamese``,
+``TrainerSiameseMultitask`` and ``MultimodalTrainer`` on the batches of
+the pair-file loaders of
 :mod:`abnet3_torch.dataloader`: split
 and mixed bank batches, frame-table index batches and aligned frame-pair
 batches (device and host backends), and on ``OnDeviceSamplerDataLoader``,
@@ -36,14 +37,15 @@ import numpy as np
 import torch
 
 from abnet3_torch.dataloader import (Batch, BankBatch, FrameBankBatch,
-                                     SplitBankBatch, prefetch_iterator)
+                                     MultimodalDataLoader, SplitBankBatch,
+                                     prefetch_iterator)
 from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import resolve_device
-from abnet3_torch.weights import (jax_param_slots, load_jax_numpy,
-                                  to_jax_numpy)
+from abnet3_torch.weights import (jax_param_slots, jax_param_tree,
+                                  load_jax_numpy, to_jax_numpy)
 
 __all__ = ["TrainerBuilder", "TrainerSiamese", "TrainerSiameseMultitask",
-           "build_optimizer", "MetricsWriter"]
+           "MultimodalTrainer", "build_optimizer", "MetricsWriter"]
 
 
 def build_optimizer(optimizer_type: str, params, lr: float,
@@ -237,19 +239,19 @@ class TrainerBuilder:
     def _ckpt_path(self):
         return self.network.output_path + ".ckpt"
 
-    def _slot_tree(self, name):
+    def _slot_tree(self, name, keep=None):
         """The optimizer's per-parameter state ``name`` as a tree shaped
         like the JAX params (zeros where a parameter has none yet, as in
-        optax's initial state)."""
-        tree = {}
-        for path, key, p in jax_param_slots(self.network):
+        optax's initial state). With ``keep`` (a test on the tree's
+        top-level keys) the other subtrees are optax's masked nodes, empty
+        lists on disk (the state of one group of ``multi_transform``)."""
+        def leaf(path, key, p):
             v = self.optimizer.state.get(p, {}).get(name)
-            node = tree
-            for k in path:
-                node = node.setdefault(k, {})
-            node[key] = (
-                np.zeros(tuple(p.shape), np.float32) if v is None
-                else v.detach().cpu().numpy().copy())
+            return (np.zeros(tuple(p.shape), np.float32) if v is None
+                    else v.detach().cpu().numpy().copy())
+        tree = jax_param_tree(self.network, leaf)
+        if keep is not None:
+            tree = {k: (v if keep(k) else []) for k, v in tree.items()}
         return tree
 
     def _torch_steps(self) -> float:
@@ -258,6 +260,11 @@ class TrainerBuilder:
         return max(steps, default=0.0)
 
     def _opt_state_tree(self):
+        """optax's state of the trainer's optimizer, as a checkpoint
+        stores it (see :meth:`_optax_state`)."""
+        return self._optax_state(self._slot_tree)
+
+    def _optax_state(self, slot_tree):
         """optax's state of ``build_optimizer(optimizer_type)`` in the JAX
         package, from torch's: sgd ``(TraceState(trace), EmptyState())``
         from ``momentum_buffer``; adadelta ``(EmptyState(),
@@ -267,31 +274,32 @@ class TrainerBuilder:
         ``exp_avg_sq``; adagrad and RMSprop from their own slots (see
         :mod:`abnet3_torch.optim`); LBFGS ``(ScaleByLBFGSState,
         EmptyState(), ScaleByZoomLinesearchState)`` from its slots and
-        scalars. Named tuples are lists here, as on disk."""
+        scalars. Named tuples are lists here, as on disk. ``slot_tree(
+        name)`` gives the params-shaped tree of the per-parameter state
+        ``name``."""
         kind = self.optimizer_type
         opt = self.optimizer
         if kind == "sgd":
-            return [[self._slot_tree("momentum_buffer")], []]
+            return [[slot_tree("momentum_buffer")], []]
         if kind == "adadelta":
-            return [[], [self._slot_tree("square_avg"),
-                         self._slot_tree("acc_delta")], []]
+            return [[], [slot_tree("square_avg"), slot_tree("acc_delta")],
+                    []]
         if kind == "adagrad":
-            return [[self._slot_tree("sum_of_squares")], []]
+            return [[slot_tree("sum_of_squares")], []]
         if kind == "RMSprop":
-            return [[self._slot_tree("nu")], [], []]
+            return [[slot_tree("nu")], [], []]
         if kind == "LBFGS":
             f32 = np.float32
             return [[np.asarray(opt.count, np.int32)]
-                    + [self._slot_tree(n) for n in _LBFGS_SLOTS]
+                    + [slot_tree(n) for n in _LBFGS_SLOTS]
                     + [opt.weights_memory.cpu().numpy().astype(f32)], [],
                     [np.asarray(opt.learning_rate, f32),
-                     np.asarray(opt.value, f32), self._slot_tree("grad"),
+                     np.asarray(opt.value, f32), slot_tree("grad"),
                      [np.asarray(opt.num_linesearch_steps, np.int32),
                       np.asarray(opt.decrease_error, f32),
                       np.asarray(opt.curvature_error, f32)]]]
         return [[np.asarray(int(self._torch_steps()), np.int32),
-                 self._slot_tree("exp_avg"), self._slot_tree("exp_avg_sq")],
-                []]
+                 slot_tree("exp_avg"), slot_tree("exp_avg_sq")], []]
 
     def save_checkpoint(self, epoch: int):
         from abnet3_torch.serialize import save_pytree
@@ -308,7 +316,14 @@ class TrainerBuilder:
                 # torch's adadelta step counter, which optax does not keep
                 # (the JAX package ignores this key)
                 "torch_steps": self._torch_steps()}
+        meta.update(self._extra_ckpt_meta())
         save_pytree(self._ckpt_path, tree, meta)
+
+    def _extra_ckpt_meta(self):
+        return {}
+
+    def _restore_extra_meta(self, meta):
+        pass
 
     def _load_opt_state(self, saved, meta):
         """Fill the optimizer's state from a checkpoint's ``opt_state``:
@@ -321,6 +336,14 @@ class TrainerBuilder:
                            for i, s in saved.items()}
             self.optimizer.load_state_dict(sd)
             return
+        if self.optimizer_type == "LBFGS":
+            self._check_layout(saved)
+            self._load_lbfgs_state(saved)
+            return
+        self.optimizer.state.clear()
+        self._fill_optax_state(saved, meta, jax_param_slots(self.network))
+
+    def _check_layout(self, saved):
         want = _OPTAX_LAYOUTS[self.optimizer_type]
         if _layout(saved) != want:
             raise ValueError(
@@ -328,10 +351,13 @@ class TrainerBuilder:
                 f"{_layout(saved)}; optax's {self.optimizer_type} state, "
                 f"which this trainer reads and writes, has {want}"
                 " (or torch's state_dict by parameter index)")
+
+    def _fill_optax_state(self, saved, meta, params):
+        """Fill the optimizer's state of the parameters ``params`` ((path,
+        key, parameter) as :func:`~abnet3_torch.weights.jax_param_slots`
+        gives them) from optax's state ``saved`` (any type but LBFGS)."""
+        self._check_layout(saved)
         kind = self.optimizer_type
-        if kind == "LBFGS":
-            self._load_lbfgs_state(saved)
-            return
         if kind == "sgd":
             slots, steps = {"momentum_buffer": saved[0][0]}, None
         elif kind == "adadelta":
@@ -344,8 +370,7 @@ class TrainerBuilder:
         else:
             slots = {"exp_avg": saved[0][1], "exp_avg_sq": saved[0][2]}
             steps = float(saved[0][0])
-        self.optimizer.state.clear()
-        for path, key, p in jax_param_slots(self.network):
+        for path, key, p in params:
             st = {}
             if steps is not None:
                 st["step"] = torch.tensor(steps, dtype=torch.float32)
@@ -379,6 +404,7 @@ class TrainerBuilder:
         from abnet3_torch.serialize import load_pytree
         tree, meta = load_pytree(self._ckpt_path)
         load_jax_numpy(self.network, tree["params"], tree.get("state", {}))
+        self._restore_extra_meta(meta)
         self._load_opt_state(tree["opt_state"], meta)
         self.best_dev = (meta["best_dev"]
                          if meta.get("best_dev_is_mean") else None)
@@ -498,8 +524,12 @@ class TrainerSiamese(TrainerBuilder):
             dl = self.dataloader
             args = (self.network, self.loss, self.optimizer)
             if isinstance(b, FrameBankBatch):
+                # multimodality comes from the loader's type, not the
+                # table count: a one-modality MultimodalDataLoader still
+                # feeds x lists to a MultimodalSiameseNetwork
                 self._step_fns[key] = parallel.make_frame_train_step(
-                    *args, dl.frame_tables(b.mode == "train"))
+                    *args, dl.frame_tables(b.mode == "train"),
+                    multimodal=isinstance(dl, MultimodalDataLoader))
             else:
                 tcl = getattr(dl, "tcl", 0.0)
                 # the pure-tcl TemporalCoherenceDataLoader holds a frame
@@ -602,8 +632,9 @@ class TrainerSiamese(TrainerBuilder):
         return out
 
     def _frame_pair_step(self, b: Batch, do_training: bool):
-        """One train (or eval) step on an aligned frame-pair batch;
-        returns its loss as a 0-d device tensor."""
+        """One train (or eval) step on an aligned frame-pair batch (its
+        x1/x2 per-modality lists for the multimodal network); returns its
+        loss as a 0-d device tensor."""
         if "frames" not in self._step_fns:
             from abnet3_torch.parallel import make_frame_pair_steps
             self._step_fns["frames"] = make_frame_pair_steps(
@@ -615,7 +646,9 @@ class TrainerSiamese(TrainerBuilder):
             assert b.y_spk is not None, ("multitask training needs speaker "
                                          "labels (MultiTaskDataLoader)")
             args += (b.y_spk,)
-        return step(*(t.to(self.device) for t in args))
+        return step(*(
+            [x.to(self.device) for x in t] if isinstance(t, (list, tuple))
+            else t.to(self.device) for t in args))
 
     def give_batch_to_network(self, batch, do_training):
         """Run or buffer one batch; returns the per-batch losses of the
@@ -747,6 +780,157 @@ class TrainerSiameseMultitask(TrainerSiamese):
     speaker labels too."""
 
     _BANK_EXTRA_LABELS = True
+
+
+class MultimodalTrainer(TrainerSiamese):
+    """Multimodal trainer with the attention headstart schedule (reference
+    trainer.py:281-365) for a ``MultimodalSiameseNetwork`` on the batches
+    of ``MultimodalDataLoader``: index batches against one frame table per
+    modality, or dense per-modality frame lists (the host backend, every
+    row weight 1).
+
+    ``headstart=(epochs, parallel_after, weight)`` freezes the
+    integration unit to ``weight`` (its ``set_headstart_weight``; a unit
+    without the protocol raises ``TypeError``). The pass that finds the
+    count at 0 (the epoch-0 eval pass counts, as in the JAX package)
+    calls the unit's ``start_training()``, drops the built steps and
+    starts a fresh optimizer; unless ``parallel_after`` the main network
+    (every parameter outside the unit) is frozen from then on: it leaves
+    the optimizer and stops requiring gradients, so it does not move at
+    all (optax's ``set_to_zero`` in the JAX package). The network's
+    ``attention_lr`` gives the unit's parameters a param group with that
+    learning rate (optax's ``multi_transform``). A checkpoint stores
+    ``frozen_main`` and ``headstart_epochs``, and the optimizer state in
+    optax's layout: the plain one with neither group nor freeze, else
+    ``multi_transform``'s state of the ``attention`` and ``main`` groups
+    (``set_to_zero``'s empty state for a frozen main). LBFGS takes no
+    groups."""
+
+    def __init__(self, headstart=None, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._frozen_main = False
+        if headstart:
+            self.headstart_epochs = headstart[0]
+            self.parallel_after_headstart = headstart[1]
+            try:
+                self.network.integration_unit.set_headstart_weight(
+                    headstart[2])
+            except NotImplementedError:
+                raise TypeError(
+                    "Headstart only works with integration units which "
+                    "have set_headstart_weight() implemented")
+            self.headstart = True
+        else:
+            self.headstart = False
+        self.optimizer = self._build_effective_optimizer()
+
+    def _grouped(self) -> bool:
+        """Whether the optimizer state is ``multi_transform``'s."""
+        return bool(getattr(self.network, "attention_lr", None)) \
+            or self._frozen_main
+
+    def _attention_params(self):
+        return list(self.network.integration_unit.parameters())
+
+    def _main_params(self):
+        att = {id(p) for p in self._attention_params()}
+        return [p for p in self.network.parameters() if id(p) not in att]
+
+    def _build_effective_optimizer(self):
+        """The optimizer over the multimodal param groups: the unit's at
+        ``attention_lr`` (reference model.py:512-528) and the main
+        network's at ``lr``, left out once frozen (the reference's
+        ``network.freeze_training()``, reference trainer.py:348-350)."""
+        if not self._grouped():
+            return build_optimizer(self.optimizer_type,
+                                   self.network.parameters(), self.lr,
+                                   self.momentum)
+        if self.optimizer_type == "LBFGS":
+            raise NotImplementedError(
+                "LBFGS takes no param groups: leave attention_lr unset and "
+                "use a parallel headstart")
+        att_lr = self.network.attention_lr or self.lr
+        groups = [{"params": self._attention_params(), "lr": att_lr}]
+        if self._frozen_main:
+            for p in self._main_params():
+                p.requires_grad_(False)
+        else:
+            groups.insert(0, {"params": self._main_params()})
+        return build_optimizer(self.optimizer_type,
+                               [g for g in groups if g["params"]], self.lr,
+                               self.momentum)
+
+    def _reset_optimizer(self):
+        """A fresh optimizer for the current groups; the built steps,
+        which hold the old one, are dropped."""
+        self.optimizer = self._build_effective_optimizer()
+        self._step_fns.clear()
+
+    def _extra_ckpt_meta(self):
+        meta = {"frozen_main": self._frozen_main}
+        if self.headstart:
+            meta["headstart_epochs"] = self.headstart_epochs
+        return meta
+
+    def _restore_extra_meta(self, meta):
+        self._frozen_main = bool(meta.get("frozen_main", False))
+        if self.headstart and "headstart_epochs" in meta:
+            self.headstart_epochs = int(meta["headstart_epochs"])
+        self._reset_optimizer()
+
+    @staticmethod
+    def _in_attention(path) -> bool:
+        return path[0] == "integration"
+
+    def _opt_state_tree(self):
+        if not self._grouped():
+            return super()._opt_state_tree()
+
+        def group(attention):
+            return self._optax_state(lambda name: self._slot_tree(
+                name, keep=lambda k: (k == "integration") == attention))
+        return [{"attention": [group(True)],
+                 "main": [[] if self._frozen_main else group(False)]}]
+
+    def _load_opt_state(self, saved, meta):
+        if not self._grouped():
+            return super()._load_opt_state(saved, meta)
+        if not (isinstance(saved, list) and len(saved) == 1
+                and isinstance(saved[0], dict)
+                and set(saved[0]) == {"attention", "main"}):
+            raise ValueError(
+                f"the checkpoint's optimizer state has the layout "
+                f"{_layout(saved)}; this trainer's param groups need "
+                "multi_transform's [{attention, main}]")
+        slots = list(jax_param_slots(self.network))
+        self.optimizer.state.clear()
+        self._fill_optax_state(saved[0]["attention"][0], meta,
+                               [s for s in slots if self._in_attention(s[0])])
+        main = saved[0]["main"][0]
+        if self._frozen_main:
+            if main != []:
+                raise ValueError("a frozen main network's optimizer state "
+                                 f"is empty, the checkpoint's {_layout(main)}")
+        else:
+            self._fill_optax_state(
+                main, meta, [s for s in slots if not self._in_attention(s[0])])
+
+    def optimize_model(self, do_training=True):
+        if self.headstart and self.headstart_epochs == 0:
+            if not self.parallel_after_headstart:
+                self._frozen_main = True
+            try:
+                self.network.integration_unit.start_training()
+            except NotImplementedError:
+                raise TypeError(
+                    "Headstart only works with integration units which "
+                    "have start_training() implemented")
+            self._reset_optimizer()
+            print("Headstart ended")
+        dev_loss = super().optimize_model(do_training)
+        if self.headstart and self.headstart_epochs > -1:
+            self.headstart_epochs -= 1
+        return dev_loss
 
 
 def _on_stream(iterator, stream):

@@ -27,7 +27,8 @@ __all__ = ["read_spkid_file", "read_spk_list", "read_dataset",
            "resolve_device", "full_float32", "pow2_bucket",
            "cosine_distance", "dtw_numpy", "dtw_numpy_fast",
            "get_dtw_alignment", "progress", "to_ordinal", "get_var_name",
-           "cast_features"]
+           "cast_features", "expand_dimension_list", "EmbeddingObserver",
+           "SequentialPartialSave"]
 
 
 def resolve_device(device=None, cuda: bool = True) -> torch.device:
@@ -384,3 +385,78 @@ def cast_features(features: Dict[str, np.ndarray],
     for item in features:
         features[item] = features[item].astype(target_type)
     return features
+
+
+def expand_dimension_list(dimensions_list) -> List[int]:
+    """Expand [(dim, n), ...] run-length entries to a flat dim list
+    (reference utils.py:354-365)."""
+    final: List[int] = []
+    for x in dimensions_list:
+        if isinstance(x, int):
+            final.append(x)
+        elif isinstance(x, (tuple, list)):
+            assert len(x) == 2
+            final.extend([x[0]] * x[1])
+        else:
+            raise TypeError("Dimension list element must be int or tuple")
+    return final
+
+
+class EmbeddingObserver:
+    """Records internal model responses (the learnt attention weights)
+    during embedding and saves them as h5features beside the embeddings
+    (reference utils.py:282-311)."""
+
+    def __init__(self, status_getter, path: str):
+        self.status_getter = status_getter
+        self.path = path
+        self.intern_responses: List[np.ndarray] = []
+
+    def register_status(self):
+        response = self.status_getter()
+        if isinstance(response, torch.Tensor):
+            response = response.detach().cpu().numpy()
+        self.intern_responses.append(np.asarray(response))
+
+    def record_arrays(self, arrays):
+        """Bulk registration of per-file arrays the embedder's forward
+        returned (the path :class:`~abnet3_torch.embedder
+        .MultimodalEmbedder` uses)."""
+        self.intern_responses = [np.asarray(a) for a in arrays]
+
+    def save(self, items, times):
+        from abnet3_torch.io.h5f import write_h5features
+        if os.path.exists(self.path):
+            os.remove(self.path)
+        write_h5features(self.path, "features", items, times,
+                         self.intern_responses)
+
+
+class SequentialPartialSave:
+    """The reference's call surface over
+    :meth:`abnet3_torch.nn.Tower.forward` with ``save_partials=True``
+    (reference utils.py:313-352): ``forward(x)``, then
+    ``get_partial_result(i)``, index 0 the network's input and index i
+    the input of the i-th Linear layer. The tower runs in eval mode, as
+    the JAX package's adapter runs it (its mode is restored after)."""
+
+    def __init__(self, tower):
+        self.tower = tower
+        self.partial_results: Dict[int, object] = {
+            i: 0 for i in range(tower.spec.num_layers)}
+
+    def get_partial_result(self, index: int):
+        return self.partial_results[index]
+
+    def forward(self, x):
+        was_training = self.tower.training
+        self.tower.eval()
+        try:
+            out, partials = self.tower(x, save_partials=True)
+        finally:
+            self.tower.train(was_training)
+        for i, p in enumerate(partials):
+            self.partial_results[i] = p
+        return out
+
+    __call__ = forward

@@ -157,19 +157,37 @@ Phases, each printing JSON lines:
     tests/test_quality.py (``learning_check``): the train loss falls and
     the trained ABX proxy is under 0.7x the raw features', ``dtw_path``
     launched once a step;
-17. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+17. multimodal_path: the multimodal family at the flagship's width: a
+    second modality from the same wavs on the card (MFCC with deltas and
+    delta-deltas, CMVN, 7-frame stacking: 273 dims) beside the fbanks;
+    ``MultimodalDataLoader`` (device backend, batch 500, 20 batches a
+    pass, aligned on the fbanks by ``dtw_moves``), pre-nets 280->500->500
+    and 273->500->500, ``BiWeightedDeepLearnt`` attention, post-net
+    500->500->100 through ``MultimodalTrainer`` (coscos2, adadelta 0.1,
+    ``attention_lr`` 0.01, headstart (2, False, 0.5), 3 epochs), then
+    ``MultimodalEmbedder`` over the 40 files with the attention weights,
+    and 1,024 exported tokens through the ABX tiles (``dtw_path_stats``).
+    Checks: ``dtw_moves`` launched as predicted from the pair lists,
+    ``dtw_path_stats`` 2,560 times, the other kernels never; one frame
+    step on the card equal to the CPU's (rtol 1e-4), the unit frozen and
+    learning; the main network's parameters bit for bit unchanged after
+    the headstart while the attention moves; the export equal to a CPU
+    export (rtol 1e-4), weights in (0, 1), the int8 codes card == CPU.
+    It prints load_data_s, host and event ms a step, embed_s cold and
+    warm, the ABX error and the losses by epoch;
+18. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
-18. timing: for each of the four kernels ``device_ms`` (the kernel's own
+19. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-19. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
+20. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
     steps (the device loader's batch building included), over 10
-    multitask split steps, over one
+    multitask split steps, over 10 multimodal frame steps, over one
     sampled train call of 8 steps, over one ABX tile of 1,024 rows, over
     one device scoring pass (across) and over one int8 streamed embed of
     the corpus: device time by group, launches and the busy share.
@@ -2615,6 +2633,317 @@ def run_embed_cli(network, names, feats, want, device=None):
     return {"files": len(names), "seconds": seconds, "max_abs_diff": diff}
 
 
+def multimodal_network(output_path=None, device=None):
+    """The flagship's 280->500->500->500->100 sigmoid tower split around
+    a fusion of two modalities: pre-nets 280->500->500 (fbanks) and
+    273->500->500 (MFCC), ``BiWeightedDeepLearnt`` attention (one
+    500->1 layer per branch, sum), post-net 500->500->100, attention
+    learning rate 0.01, no dropout."""
+    from abnet3_torch.integration import BiWeightedDeepLearnt
+    from abnet3_torch.models.multimodal import MultimodalSiameseNetwork
+    unit = BiWeightedDeepLearnt(net_params=[[500, 1], [500, 1]],
+                                integration_mode="sum")
+    return MultimodalSiameseNetwork(
+        integration_unit=unit,
+        pre_integration_net_params=[[280, 500, 500], [273, 500, 500]],
+        post_integration_net_params=[500, 500, 100], attention_lr=0.01,
+        p_dropout=0.0, activation_layer="sigmoid", type_init="xavier_uni",
+        output_path=output_path, device=device)
+
+
+def multimodal_copy(net, device=None, frozen=None):
+    """A multimodal network on ``device`` carrying ``net``'s weights; its
+    unit frozen to ``frozen`` when given."""
+    from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+    out = multimodal_network(device=device)
+    load_jax_numpy(out, *to_jax_numpy(net))
+    out.ensure_init()
+    if frozen is not None:
+        out.integration_unit.set_headstart_weight(frozen)
+    return out
+
+
+def mfcc_modality(wav_paths, device=None):
+    """The second modality: ``FeaturesGenerator``'s MFCC pass (13 ceps,
+    deltas and delta-deltas) over the same wavs on the card, then
+    per-channel CMVN and 7-frame stacking on the host, as the flagship's
+    fbanks. Returns (Features_Accessor, seconds of the spectral pass,
+    seconds on the host)."""
+    from abnet3_torch.features import (FeaturesGenerator, cmvn_apply,
+                                       cmvn_statistics)
+    from abnet3_torch.ops import dsp
+    from abnet3_torch.utils import Features_Accessor, resolve_device
+    dev = resolve_device(device)
+    fg = FeaturesGenerator(files=wav_paths, method="mfcc",
+                           normalization=True, norm_per_file=False,
+                           norm_per_channel=True, stack=True, nframes=7,
+                           deltas=True, deltasdeltas=True, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    spectra = list(fg.spectral_stream(wav_paths, "mfcc"))
+    sync()
+    spectral_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean, std = cmvn_statistics(spectra, per_channel=True)
+    stacked = {item: dsp.stack_frames_np(cmvn_apply(f, mean, std), 7)
+               for item, _, f in spectra}
+    times = {item: tm for item, tm, _ in spectra}
+    return (Features_Accessor(times, stacked), spectral_s,
+            time.perf_counter() - t0)
+
+
+def phase_multimodal_path(features, pairs, wav_paths, n_classes=128,
+                          batch_size=5000, headstart=(2, False, 0.5),
+                          num_epochs=3, max_batches=20):
+    """The multimodal family (ROADMAP A10) at the flagship's width, on the
+    card, in memory. Modality A is the front end's fbanks (280 dims);
+    modality B a second ``FeaturesGenerator`` pass over the same wavs on
+    the card: MFCC, deltas and delta-deltas, CMVN, 7-frame stacking (13 x
+    3 x 7 = 273 dims, the same frame rate). ``MultimodalDataLoader`` on
+    the device backend (batch 500, ``max_batches_per_epoch`` 20) aligns
+    the pairs on modality A (the ``dtw_moves`` kernel);
+    ``MultimodalTrainer`` (coscos2, adadelta 0.1, ``attention_lr`` 0.01)
+    trains :func:`multimodal_network` for ``num_epochs`` epochs with
+    ``headstart``: the epoch-0 eval pass counts, so (2, False, 0.5)
+    trains the main network with the unit frozen for one epoch, then the
+    attention alone; ``MultimodalEmbedder`` exports the 40 files with the
+    attention weights; 1,024 tokens of the export go through the ABX
+    tiles (the ``dtw_path_stats`` kernel). Checks, each fatal:
+
+    (a) launches over load_data, training, export and ABX: ``dtw_moves``
+        the prediction from the pair lists, the sum over splits of
+        ceil(same pairs / ``align_chunk``); ``dtw_path`` and
+        ``dtw_costs`` 0;
+    (b) one frame step on the card equal to the same step on the CPU
+        (weights carried across, the same index batch) within rtol 1e-4,
+        with the unit frozen and learning;
+    (c) after the headstart every ``pre_*`` and ``post`` parameter
+        bit-for-bit unchanged across the epochs, the attention towers
+        moved;
+    (d) the export equal to a CPU export within rtol 1e-4 (embeddings
+        and weights), the weights in (0, 1) with shape (frames, 1) a
+        file, and the int8 codec's codes of the card's embeddings equal
+        to the CPU codec's on the same values;
+    (e) ``abx_error_device`` of the 1,024 tokens through the tile route:
+        ``dtw_path_stats`` launched exactly 2,560 times (10 tiles x 256
+        rows).
+
+    Returns ({kernel: launches}, a closure running one multimodal train
+    step of the learning unit, for the profile)."""
+    from abnet3_torch.dataloader import MultimodalDataLoader
+    from abnet3_torch.embedder import (MultimodalEmbedder, decode_transfer,
+                                       encode_transfer)
+    from abnet3_torch.eval.abx import _auto_block, distance_matrix
+    from abnet3_torch.eval.abx_device import abx_error_device
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.parallel import make_frame_train_step
+    from abnet3_torch.trainer import MultimodalTrainer, build_optimizer
+    t_phase = time.perf_counter()
+
+    # modality B on the card
+    mfcc, spectral_s, host_s = mfcc_modality(wav_paths)
+    names = sorted(features.features, key=lambda f: int(f[1:]))
+    dims = mfcc.features[names[0]].shape[1]
+    if dims != 273 or any(len(mfcc.features[f]) != len(features.features[f])
+                          for f in names):
+        raise AssertionError(f"MFCC modality: {dims} dims (273 wanted), or "
+                             "frame counts other than the fbanks'")
+    emit({"phase": "multimodal_path", "modality_b": "mfcc+d+dd, stack 7",
+          "dims": dims, "frames": int(sum(len(mfcc.features[f])
+                                          for f in names)),
+          "spectral_s": spectral_s, "cmvn_stack_s": host_s})
+
+    class Trainer(MultimodalTrainer):
+        """Keeps the parameters at the start of each pass pair."""
+
+        def optimize_model(self, do_training=True):
+            self._starts = getattr(self, "_starts", [])
+            self._starts.append({k: v.detach().clone() for k, v in
+                                 self.network.named_parameters()})
+            return super().optimize_model(do_training)
+
+    loader = MultimodalDataLoader(None, ["fbanks", "mfcc"], batch_size=500,
+                                  max_batches_per_epoch=max_batches,
+                                  align_backend="device")
+    loader.features_dict = {"fbanks": features, "mfcc": mfcc}
+    loader.pairs = pairs
+    loader._rng = np.random.RandomState(0)
+    n_same = {m: sum(p[6] == "same" for p in pairs[m])
+              for m in ("train", "dev")}
+    predicted = sum(-(-n // loader.align_chunk) for n in n_same.values())
+    net = multimodal_network(os.path.join(OUT, "multimodal_network"))
+    trainer = Trainer(network=net, loss=coscos2(avg=True), dataloader=loader,
+                      optimizer_type="adadelta", lr=0.1,
+                      num_epochs=num_epochs, patience=30, seed=0,
+                      log_dir=os.path.join(OUT, "multimodal_logs"),
+                      headstart=headstart)
+    steps = {"n": 0}
+    run_step = trainer._run_step
+
+    def counted(b, do_training):
+        steps["n"] += 1
+        return run_step(b, do_training)
+    trainer._run_step = counted
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loader.load_data()
+    load_data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer._run_step = run_step
+    losses = trainer.train_losses + trainer.dev_losses
+    if len(trainer.train_losses) != num_epochs + 1 or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"multimodal losses {losses}")
+    if loader.statistics_training["SameType"] != sum(n_same.values()):
+        raise AssertionError("the loader aligned another number of same "
+                             f"pairs: {dict(loader.statistics_training)}")
+
+    # (c) the main network frozen after the headstart
+    ended = headstart[0]  # the pass pair that ends the headstart
+    start, final = trainer._starts[ended], dict(net.named_parameters())
+    att = {k for k in final if k.startswith("integration_unit.")}
+    changed_main = [k for k in final if k not in att
+                    and not torch.equal(start[k], final[k])]
+    still_att = [k for k in att if torch.equal(start[k], final[k])]
+    trained_main = [k for k in final if k not in att and not torch.equal(
+        trainer._starts[1][k], start[k])]
+    held_att = [k for k in att if not torch.equal(trainer._starts[1][k],
+                                                  start[k])]
+    if changed_main or still_att or not trainer._frozen_main \
+            or not trained_main or held_att:
+        raise AssertionError(
+            f"frozen main moved at {changed_main}, attention stayed at "
+            f"{still_att}; in the headstart the main trained at "
+            f"{trained_main}, the frozen attention moved at {held_att}")
+
+    # (b) one step on the card against the CPU, unit frozen and learning;
+    # CUDA-event ms a step of each on the card
+    batch = next(b for b in loader.batch_iterator(train_mode=True))
+    args = trainer._args_for(batch)
+    tables = loader.frame_tables(True)
+    step_check = {}
+    for frozen in (0.5, None):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            n = multimodal_copy(net, None if dev == "cuda" else "cpu",
+                                frozen)
+            opt = build_optimizer("adadelta", n.parameters(), 0.1)
+            step, _ = make_frame_train_step(
+                n, coscos2(avg=True), opt,
+                tuple(t.to(dev) for t in tables), multimodal=True)
+            dargs = [a.to(dev) for a in args]
+            out[dev] = float(step(*dargs))
+            if dev == "cuda":
+                out["ms"] = cuda_time_ms(lambda: step(*dargs), reps=10,
+                                         warmup=2)
+                if frozen is None:
+                    run_learning = (lambda s=step, a=dargs: s(*a))
+        if not math.isclose(out["cuda"], out["cpu"], rel_tol=1e-4):
+            raise AssertionError(f"multimodal step (unit frozen: "
+                                 f"{frozen is not None}): card "
+                                 f"{out['cuda']} vs CPU {out['cpu']}")
+        step_check["frozen" if frozen is not None else "learning"] = {
+            "step_card": out["cuda"], "step_cpu": out["cpu"],
+            "ms_per_step_events": out["ms"]}
+    emit({"phase": "multimodal_path", "run": "train",
+          "headstart": list(headstart), "epochs": num_epochs,
+          "steps": steps["n"], "load_data_s": load_data_s,
+          "train_s": train_s,
+          "host_ms_per_step": train_s / max(steps["n"], 1) * 1e3,
+          "train_losses": trainer.train_losses,
+          "dev_losses": trainer.dev_losses,
+          "frame_pairs": {m: len(loader.frame_pairs[m])
+                          for m in ("train", "dev")},
+          "table_rows": {m: len(loader.token_tables[m][0])
+                         for m in ("train", "dev")},
+          "frozen_main_params_unchanged": not changed_main,
+          "main_trained_in_headstart": bool(trained_main),
+          "steps_card_cpu": step_check})
+
+    # (d) the export, on the card (cold, then warm) and on the CPU
+    fb = [features.features[f] for f in names]
+    mf = [mfcc.features[f] for f in names]
+    emb = MultimodalEmbedder(network=net, batch_size=batch_size,
+                             output_path=os.path.join(OUT, "multimodal_"))
+    embed_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs, weights = emb.embed_modalities([fb, mf])
+        embed_s.append(time.perf_counter() - t0)
+    cpu = MultimodalEmbedder(network=multimodal_copy(net, "cpu"),
+                             batch_size=batch_size, device="cpu",
+                             output_path=os.path.join(OUT, "multimodal_"))
+    cpu_embs, cpu_weights = cpu.embed_modalities([fb, mf])
+    errs = {}
+    for name, a, b in (("embeddings", embs, cpu_embs),
+                       ("weights", weights, cpu_weights)):
+        a, b = np.concatenate(a), np.concatenate(b)
+        rel = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+        errs[name] = {"max_abs": float(np.abs(a - b).max()),
+                      "max_rel": rel}
+        if rel > 1e-4:
+            raise AssertionError(f"multimodal export {name}: card vs CPU "
+                                 f"relative error {rel}")
+    if not all(w.shape == (len(f), 1) and ((w > 0) & (w < 1)).all()
+               for w, f in zip(weights, fb)):
+        raise AssertionError("attention weights off (0, 1) or misshapen")
+    chunk = torch.from_numpy(np.concatenate(embs)[:batch_size]).cuda()
+    card_q = encode_transfer(chunk, "int8")
+    cpu_q = encode_transfer(chunk.cpu(), "int8")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(card_q, cpu_q)):
+        raise AssertionError("int8 codes of the card differ from the CPU's")
+    if not np.array_equal(decode_transfer(card_q), decode_transfer(cpu_q)):
+        raise AssertionError("int8 decode differs")
+
+    # (e) ABX of 1,024 exported tokens through the tiles
+    tokens, labels, speakers = eval_inventory(embs, n_classes=n_classes)
+    bank = TokenBank(tokens)
+    before = launch_counts()["dtw_path_stats"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D, handle = distance_matrix(bank, "dtw_cos", batch_size=len(bank),
+                                strategy="tiles", device_out=True)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    stats = launch_counts()["dtw_path_stats"] - before
+    # one launch a row of each upper tile: for N = 1,024 the tile rule
+    # gives sides of 256 rows, 10 tiles, 2,560 launches
+    block = _auto_block(len(bank), bank.max_len, len(bank))
+    side = -(-len(bank) // block)
+    tile_rows = side * (side + 1) // 2 * block
+    if stats != tile_rows or len(bank) != 8 * n_classes or (
+            len(bank) == 1024 and stats != 2560):
+        raise AssertionError(f"{stats} stats launches for {len(bank)} "
+                             f"tokens, predicted {tile_rows} (tiles of "
+                             f"{block} rows)")
+    score = abx_error_device(handle, labels, speakers, task="across")
+    if not math.isfinite(score["error"]) or score["n_cells"] == 0:
+        raise AssertionError(f"multimodal ABX score {score}")
+    launches = launch_counts()
+    want = {"dtw_path": 0, "dtw_path_stats": tile_rows,
+            "dtw_moves": predicted, "dtw_costs": 0}
+    if launches != want:
+        raise AssertionError(f"multimodal launches {launches}, predicted "
+                             f"{want} (same pairs {n_same})")
+    emit({"phase": "multimodal_path", "run": "export_abx",
+          "frames": int(sum(len(f) for f in fb)), "embed_s_cold": embed_s[0],
+          "embed_s_warm": embed_s[1], "card_vs_cpu": errs,
+          "attention_mean": float(np.concatenate(weights).mean()),
+          "abx_error_device": score["error"],
+          "n_triplets": score["n_triplets"], "distance_s": dist_s,
+          "tile_side": block, "launches": launches, "predicted": want,
+          "same_pairs": n_same, "seconds": time.perf_counter() - t_phase})
+    return launches, run_learning
+
+
 def phase_gridsearch(wavdir, classes, spk, device=None):
     """``abnet3_torch.gridsearch.GridSearch`` on a small flagship YAML over
     the same wavs (features on the card, 2,000 pairs, one epoch, embed,
@@ -2987,19 +3316,25 @@ def main():
         trainer.network, loader.features)
     embed_stats, learn_launches, embed_run = phase_embed_path(
         trainer.network, loader)
+    multimodal_mm, multimodal_run = phase_multimodal_path(
+        loader.features, pairs, wav_paths)
     # no path runs the cost kernel: each path phase reads its count
     costs_launches = (costs_main + costs_gather + costs_eval
                       + sum(by_path["dtw_costs"].values())
-                      + sampled["dtw_costs"] + multitask["dtw_costs"])
+                      + sampled["dtw_costs"] + multitask["dtw_costs"]
+                      + multimodal_mm["dtw_costs"])
     path_by_path = {"main_path": launches, **by_path["dtw_path"],
                     "sampled_path": sampled["dtw_path"],
                     "multitask_path": multitask["dtw_path"],
                     "optimizers": opt_launches,
-                    "embed_path_learning": learn_launches}
-    stats_by_path = {"eval_path": stats_launches, "embed_path": embed_stats}
+                    "embed_path_learning": learn_launches,
+                    "multimodal_path": multimodal_mm["dtw_path"]}
+    stats_by_path = {"eval_path": stats_launches, "embed_path": embed_stats,
+                     "multimodal_path": multimodal_mm["dtw_path_stats"]}
     moves_by_path = {"gather_path": moves_launches, **by_path["dtw_moves"],
                      "sampled_gather": sampled["dtw_moves"],
-                     "multitask_path": multitask["dtw_moves"]}
+                     "multitask_path": multitask["dtw_moves"],
+                     "multimodal_path": multimodal_mm["dtw_moves"]}
     if costs_launches != 0:
         raise AssertionError(f"the cost kernel ran {costs_launches} times "
                              "on the paths, which do not use it")
@@ -3009,6 +3344,7 @@ def main():
     stats_row = phase_timing_stats(bank)
     phase_profile("train_step", run_step, reps=10)
     phase_profile("multitask_step", multitask_run, reps=10)
+    phase_profile("multimodal_step", multimodal_run, reps=10)
     phase_profile("gather_step", gather_steps_run(g_trainer, g_loader),
                   reps=10)
     phase_profile("sampled_call", sampled_run, reps=1, per_row=8,

@@ -778,3 +778,140 @@ def test_pipeline_learns_on_the_card(cuda_device, tmp_path):
     losses = out["train_losses"]
     assert losses[-1] < losses[0]
     assert out["trained"] < out["raw"] * 0.7
+
+
+
+def _multimodal(device, frozen=False, seed=0):
+    """A multimodal network (two pre-nets, an attention unit, a post-net,
+    batch norm) on ``device``, its weights drawn from ``seed`` on the
+    CPU; the unit frozen to 0.5 when ``frozen``."""
+    from abnet3_torch.integration import BiWeightedDeepLearnt
+    from abnet3_torch.models.multimodal import MultimodalSiameseNetwork
+    unit = BiWeightedDeepLearnt(net_params=[[16, 1], [16, 1]],
+                                integration_mode="sum")
+    if frozen:
+        unit.set_headstart_weight(0.5)
+    net = MultimodalSiameseNetwork(
+        integration_unit=unit, pre_integration_net_params=[[12, 16],
+                                                           [9, 16]],
+        post_integration_net_params=[16, 8], p_dropout=0.0,
+        batch_norm=True, activation_layer="sigmoid", device=device)
+    net.ensure_init(seed)
+    return net
+
+
+def _leaves(tree):
+    """The arrays of nested dicts (by sorted key) and tuples."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True])
+def test_multimodal_frame_step_on_the_card_matches_the_cpu(cuda_device,
+                                                          frozen):
+    """make_frame_train_step(multimodal=True): one adadelta step on the
+    card equals the CPU's on the same two tables and index batch (padded
+    rows of weight 0): loss rtol 1e-4, parameters and batch-norm state
+    atol 1e-5, with the unit learning and frozen to its headstart."""
+    import numpy as np
+
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.parallel import make_frame_train_step
+    from abnet3_torch.trainer import build_optimizer
+    from abnet3_torch.weights import to_jax_numpy
+    g = torch.Generator().manual_seed(17)
+    tables = (torch.randn(300, 12, generator=g),
+              torch.randn(300, 9, generator=g))
+    i1 = torch.randint(0, 300, (64,), generator=g)
+    i2 = torch.randint(0, 300, (64,), generator=g)
+    y = torch.where(torch.rand(64, generator=g) < 0.5, 1.0, -1.0)
+    w = torch.ones(64)
+    w[-9:] = 0.0
+    out = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        net = _multimodal(dev, frozen)
+        opt = build_optimizer("adadelta", net.parameters(), 0.1)
+        step, _ = make_frame_train_step(
+            net, coscos2(), opt, tuple(t.to(dev) for t in tables),
+            multimodal=True)
+        loss = float(step(*(t.to(dev) for t in (i1, i2, y, w))))
+        out[name] = (loss, _leaves(to_jax_numpy(net)))
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_multimodal_frozen_main_on_the_card(cuda_device, tmp_path):
+    """MultimodalTrainer on the card with a headstart of one pass (the
+    epoch-0 eval): from the first epoch on, every pre-net and post-net
+    parameter stays bit for bit as initialised, the attention towers
+    move, and the losses are finite."""
+    import numpy as np
+
+    from abnet3_torch.dataloader import MultimodalDataLoader
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.trainer import MultimodalTrainer
+    from abnet3_torch.utils import Features_Accessor
+    from abnet3_torch.weights import to_jax_numpy
+    g = torch.Generator().manual_seed(18)
+    times = {f"f{i}": np.arange(200) * 0.01 + 0.0025 for i in range(4)}
+    dl = MultimodalDataLoader(None, ["a", "b"], batch_size=64,
+                              device=cuda_device)
+    dl.features_dict = {m: Features_Accessor(times, {
+        k: torch.randn(200, d, generator=g).numpy() for k in times})
+        for m, d in (("a", 12), ("b", 9))}
+    rng = np.random.RandomState(19)
+    pairs = []
+    for k in range(60):
+        f1, f2 = rng.randint(4, size=2)
+        s1, s2 = rng.randint(0, 150, size=2) * 0.01
+        n1, n2 = rng.randint(5, 40, size=2) * 0.01
+        pairs.append((f"f{f1}", s1, s1 + n1, f"f{f2}", s2, s2 + n2,
+                      "same" if k % 3 else "diff"))
+    dl.pairs = {"train": pairs[:45], "dev": pairs[45:]}
+    dl._rng = np.random.RandomState(0)
+    net = _multimodal(cuda_device)
+    net.output_path = str(tmp_path / "net")
+    before = to_jax_numpy(net)[0]
+    tr = MultimodalTrainer(network=net, loss=coscos2(), dataloader=dl,
+                           optimizer_type="adam", lr=0.01, num_epochs=2,
+                           seed=0, log_dir=str(tmp_path),
+                           headstart=(1, False, 0.5), device=cuda_device)
+    tr.train()
+    after = to_jax_numpy(net)[0]
+    assert tr._frozen_main and np.isfinite(tr.train_losses).all()
+    for k in ("pre_0", "pre_1", "post"):
+        for a, b in zip(_leaves(before[k]), _leaves(after[k])):
+            assert np.array_equal(a, b)
+    assert all(not np.array_equal(a, b) for a, b in zip(
+        _leaves(before["integration"]), _leaves(after["integration"])))
+
+
+@pytest.mark.cuda
+def test_multimodal_export_on_the_card_matches_the_cpu(cuda_device):
+    """MultimodalEmbedder.embed_modalities on the card and on the CPU,
+    the same weights and per-modality lists (a chunk cuts across files):
+    the embeddings and the attention weights within rtol 1e-4 (atol
+    1e-6), the weights in (0, 1) with shape (frames, 1) a file."""
+    import numpy as np
+
+    from abnet3_torch.embedder import MultimodalEmbedder
+    g = torch.Generator().manual_seed(20)
+    lengths = [300, 45, 700, 1]
+    mods = [[torch.randn(n, d, generator=g).numpy() for n in lengths]
+            for d in (12, 9)]
+    out = {}
+    for name, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        emb = MultimodalEmbedder(network=_multimodal(dev), output_path="x",
+                                 batch_size=256, device=dev)
+        out[name] = emb.embed_modalities(mods)
+    for a, b in zip(out["card"][0] + out["card"][1],
+                    out["cpu"][0] + out["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+    for w, n in zip(out["card"][1], lengths):
+        assert w.shape == (n, 1) and ((w > 0) & (w < 1)).all()

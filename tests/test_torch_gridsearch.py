@@ -714,14 +714,51 @@ def test_num_jobs_spawn_pool(experiment, tmp_path):
     ("embedder", "MultimodalEmbedder", "A10"),
 ])
 def test_unported_class_raises(experiment, tmp_path, stage, name, item):
+    """The multimodal classes (ROADMAP ``item``, now ported) resolve
+    through the gridsearch to the port's classes, and the flagship YAML
+    with one of them behaves as the JAX package's does: no YAML builds an
+    integration unit, so the network fails its own assertion; the loader
+    takes none of the flagship loader's arguments (TypeError); the
+    trainer and the embedder build."""
     yaml_path, _, _ = experiment
     cfg = yaml.safe_load(open(yaml_path))
     cfg["default_params"][stage]["class"] = name
-    p = _write(tmp_path, "unported.yaml", yaml.safe_dump(cfg))
+    p = _write(tmp_path, "multimodal.yaml", yaml.safe_dump(cfg))
     grid = tgrid.GridSearch(input_file=p)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{name} is not ported .*ROADMAP.md {item}"):
-        grid._instantiate(grid.build_grid_experiments()[0])
+    module = __import__(f"abnet3_torch.{stage}", fromlist=[name])
+    cls = tgrid._stage_class(module, name)
+    assert cls is getattr(module, name) and name not in tgrid._UNPORTED
+    if stage in ("model", "dataloader"):
+        with pytest.raises(AssertionError if stage == "model"
+                           else TypeError):
+            grid._instantiate(grid.build_grid_experiments()[0])
+        return
+    stages = grid._instantiate(grid.build_grid_experiments()[0])
+    assert isinstance(stages[5 if stage == "trainer" else 6], cls)
+
+
+def test_abx_scores_multimodal_embeddings(experiment, tmp_path, monkeypatch):
+    """The abx block scores a MultimodalEmbedder's ``embedded.features``
+    (as the JAX package's gridsearch does)."""
+    import abnet3_torch.embedder as temb
+    import abnet3_torch.eval.abx as tabx
+    yaml_path, _, _ = experiment
+    grid = tgrid.GridSearch(input_file=yaml_path)
+    exp = grid.build_grid_experiments()[0]
+    exp["abx"] = {"arguments": {"classes_path": "words.classes"}}
+    os.makedirs(exp["pathname_experience"], exist_ok=True)
+    features, sampler, *_, embedder = grid._instantiate(exp)
+    emb = temb.MultimodalEmbedder.__new__(temb.MultimodalEmbedder)
+    emb.output_path = str(tmp_path / "mm")
+    scored = []
+
+    def fake_evaluate(path, classes, **kw):
+        scored.append(path)
+        return {"task": "across", "distance": "dtw_cos", "error": 0.0,
+                "n_triplets": 1}
+    monkeypatch.setattr(tabx, "evaluate", fake_evaluate)
+    grid._run_abx(exp, sampler, emb)
+    assert scored == [str(tmp_path / "mm") + "embedded.features"]
 
 
 @pytest.mark.parametrize("module,name", [

@@ -17,7 +17,8 @@ SLICE_MODULES = [
     "abnet3_torch", "abnet3_torch.serialize", "abnet3_torch.io",
     "abnet3_torch.io.h5f", "abnet3_torch.utils", "abnet3_torch.nn",
     "abnet3_torch.weights", "abnet3_torch.models",
-    "abnet3_torch.models.siamese", "abnet3_torch.loss",
+    "abnet3_torch.models.siamese", "abnet3_torch.models.multimodal",
+    "abnet3_torch.integration", "abnet3_torch.loss",
     "abnet3_torch.ops", "abnet3_torch.ops.dtw", "abnet3_torch.ops.cuda_dtw",
     "abnet3_torch.ops.strip_schedule", "abnet3_torch.ops.kernel_bench",
     "abnet3_torch.ops.bank", "abnet3_torch.ops.sampling",
@@ -215,3 +216,26 @@ def test_on_device_sampler_default_device_raises_without_card(no_cuda,
     with pytest.raises(RuntimeError, match="CUDA"):
         DevicePairSampler(descr, {"Stype_Sspk": {("s", 0): 1.0}},
                           batch_size=2)
+
+
+def test_multimodal_default_device_raises_without_card(no_cuda):
+    from abnet3_torch.dataloader import MultimodalDataLoader
+    from abnet3_torch.integration import SumIntegration
+    from abnet3_torch.models.multimodal import MultimodalSiameseNetwork
+    from abnet3_torch.utils import Features_Accessor
+    kw = dict(pre_integration_net_params=[[4, 6], [5, 6]],
+              post_integration_net_params=[6, 3], activation_layer="sigmoid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultimodalSiameseNetwork(integration_unit=SumIntegration(), **kw)
+    net = MultimodalSiameseNetwork(integration_unit=SumIntegration(),
+                                   device="cpu", **kw)
+    assert net.device.type == "cpu"
+    dl = MultimodalDataLoader(None, ["a", "b"])
+    times = {"f": np.arange(10) * 0.01 + 0.0025}
+    dl.features_dict = {m: Features_Accessor(
+        times, {"f": np.ones((10, d), np.float32)})
+        for m, d in (("a", 4), ("b", 5))}
+    tok = ("f", 0.0, 0.05)
+    dl.pairs = {"train": [tok + tok + ("same",)], "dev": []}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dl.load_data()

@@ -188,10 +188,38 @@ def test_frame_step_matches_jax(bn):
 
 
 def test_frame_step_refuses_multimodal():
-    _, tnet, _, _ = _nets()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpar.make_frame_train_step(tnet, Tcoscos2(), _sgd(tnet),
-                                   (torch.zeros(3, D),) * 2, multimodal=True)
+    """make_frame_train_step(multimodal=True), once refused, now holds
+    against JAX's: one frame table per modality, each side the list of
+    per-modality rows of a MultimodalSiameseNetwork (attention unit,
+    batch norm), padded rows of weight 0 out of the loss and the batch
+    norm."""
+    import abnet3_tpu.integration as JI
+    import abnet3_torch.integration as TI
+    from torch_parity import carried_multimodal
+    unit = dict(net_params=[[6, 1], [6, 1]], integration_mode="sum")
+    jnet, tnet, jp, js = carried_multimodal(
+        JI.BiWeightedDeepLearnt(**unit), TI.BiWeightedDeepLearnt(**unit),
+        pre_integration_net_params=[[D, 6], [5, 6]],
+        post_integration_net_params=[6, 3], p_dropout=0.0,
+        activation_layer="sigmoid", batch_norm=True)
+    rng = np.random.RandomState(4)
+    tables = (rng.randn(120, D).astype(np.float32),
+              rng.randn(120, 5).astype(np.float32))
+    i1 = rng.randint(0, 120, 40).astype(np.int32)
+    i2 = rng.randint(0, 120, 40).astype(np.int32)
+    y = np.where(rng.rand(40) < 0.5, 1.0, -1.0).astype(np.float32)
+    w = np.ones(40, np.float32)
+    w[-7:] = 0.0
+    batch = (i1, i2, y, w)
+    jsteps = jpar.make_frame_train_step(
+        jnet, Jcoscos2(), optax.sgd(1.0),
+        tuple(jnp.asarray(t) for t in tables), _mesh(), multimodal=True)
+    tsteps = tpar.make_frame_train_step(
+        tnet, Tcoscos2(), _sgd(tnet),
+        tuple(torch.from_numpy(t) for t in tables), multimodal=True)
+    tnet.ensure_init()
+    _check(jsteps, tsteps, jax.tree_util.tree_map(jnp.asarray, jp),
+           jax.tree_util.tree_map(jnp.asarray, js), tnet, batch)
 
 
 def _padded(tokens, keys, T):

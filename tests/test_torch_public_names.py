@@ -28,8 +28,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX modules with no twin module in the port, and why
 MISSING_MODULES = {
-    "abnet3_tpu.integration": "A10",
-    "abnet3_tpu.models.multimodal": "A10",
     # the Pallas kernels are ported as CUDA kernels (ROADMAP B)
     "abnet3_tpu.ops.pallas_dtw": "B: abnet3_torch.ops.cuda_dtw",
     # the native pair parser and host DTW are only a speed-up
@@ -37,13 +35,6 @@ MISSING_MODULES = {
 }
 # public names the port's twin module lacks, and the item that holds them
 MISSING_NAMES = {
-    "abnet3_tpu.dataloader": {"MultimodalDataLoader": "A10"},
-    "abnet3_tpu.embedder": {"MultimodalEmbedder": "A10"},
-    "abnet3_tpu.model": {"MultimodalSiameseNetwork": "A10"},
-    "abnet3_tpu.trainer": {"MultimodalTrainer": "A10"},
-    "abnet3_tpu.utils": {"expand_dimension_list": "A10",
-                         "EmbeddingObserver": "A10",
-                         "SequentialPartialSave": "A10"},
     "abnet3_tpu.parallel.mesh": {"make_mesh": "A11",
                                  "param_shardings": "A11",
                                  "shard_array": "A11"},

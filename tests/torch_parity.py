@@ -92,3 +92,37 @@ def loader_corpus(tmp_path):
     with open(id_to_file, "w") as f:
         f.writelines(f"{i} f{i}\n" for i in range(4))
     return feats_path, pairs_path, knn, id_to_file
+
+
+def carried_multimodal(jax_unit, torch_unit, seed=0, **kw):
+    """A JAX ``MultimodalSiameseNetwork`` around ``jax_unit`` with params
+    drawn from ``seed`` and a CPU port network around ``torch_unit``
+    carrying the same weights. Returns (jax_net, torch_net, params, state)
+    with params/state as numpy trees; the JAX network holds them too."""
+    import jax.numpy as jnp
+
+    from abnet3_tpu.models import MultimodalSiameseNetwork as JaxMM
+    from abnet3_torch.models import MultimodalSiameseNetwork as TorchMM
+    jnet = JaxMM(integration_unit=jax_unit, **kw)
+    params, state = jnet.init_params(jax.random.PRNGKey(seed))
+    params, state = to_numpy(params), to_numpy(state)
+    jnet.params = jax.tree_util.tree_map(jnp.asarray, params)
+    jnet.state = jax.tree_util.tree_map(jnp.asarray, state)
+    tnet = TorchMM(integration_unit=torch_unit, device="cpu", **kw)
+    load_jax_numpy(tnet, params, state)
+    return jnet, tnet, params, state
+
+
+def multimodal_corpus(tmp_path, d2=5):
+    """:func:`loader_corpus` plus a second modality over the same 4 files
+    (80 frames x ``d2`` dims, seed 1). Returns (first features path,
+    second features path, pairs directory)."""
+    from abnet3_tpu.io import write_h5features
+    feats, pairs, _, _ = loader_corpus(tmp_path)
+    rng = np.random.RandomState(1)
+    feats2 = str(tmp_path / "feats2.h5f")
+    items = [f"f{i}" for i in range(4)]
+    write_h5features(feats2, "features", items,
+                     [np.arange(80) * 0.01 + 0.0025 for _ in items],
+                     [rng.randn(80, d2).astype(np.float32) for _ in items])
+    return feats, feats2, pairs
