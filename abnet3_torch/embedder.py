@@ -22,8 +22,13 @@ multimodal network's forward (each modality cut at the same frame
 boundaries) and writes the embeddings and, for a learnt attention unit,
 the attention weights.
 
-Not ported yet (it raises ``NotImplementedError``): the data-parallel
-``mesh`` (ROADMAP A11).
+With a ``mesh`` (one process per GPU, :func:`abnet3_torch.parallel
+.make_mesh`, or a YAML dict) every rank cuts the same chunks, rounded to
+the 'data' axis, and runs its block of each chunk's rows (the towers
+sharded over 'model' when that axis is larger than 1); the codecs take
+their int8/int4 scalars over the whole chunk (min and max all-reduced
+over 'data'), the codes are gathered, and rank 0 writes the files: the
+embeddings equal world size 1's.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from abnet3_torch import dist as mesh_dist
 from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import EmbeddingObserver, resolve_device
 
@@ -43,7 +50,14 @@ _WINDOW = 16       # encoded chunks in flight on the device before a drain
 _FLUSH_EVERY = 32  # finished files a streaming writer appends at once
 
 
-def encode_transfer(out: torch.Tensor, transfer_dtype: str):
+def _global_extreme(t: torch.Tensor, op, group) -> torch.Tensor:
+    if group is not None:
+        t = t.clone()
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def encode_transfer(out: torch.Tensor, transfer_dtype: str, group=None):
     """Device-side wire codec: shrink the bytes a chunk of embeddings
     ships over the device->host copy (the files always store float32; the
     codec lives on the wire only). Takes and returns tensors on ``out``'s
@@ -60,21 +74,28 @@ def encode_transfer(out: torch.Tensor, transfer_dtype: str):
       0.5 B/value plus 8 B a dimension; the error is at most
       (hi_d-lo_d)/30 in dimension d. Opt-in: too coarse for numeric
       reuse, fine for ABX ranking.
+
+    ``group``: ``out`` is one rank's block of the chunk's rows; the min
+    and max are taken over the group (the whole chunk), so the codes
+    equal an unsharded encode's.
     """
+    MIN, MAX = dist.ReduceOp.MIN, dist.ReduceOp.MAX
     if transfer_dtype == "bfloat16":
         return (out.to(torch.bfloat16),)
     # the divisors are tensors on out's device: on the card, a Python
     # scalar divisor becomes a multiply by its reciprocal, which rounds
     # otherwise than the division of the CPU and of the JAX package
     if transfer_dtype == "int8":
-        lo = torch.min(out)
-        scale = (torch.clamp(torch.max(out) - lo, min=1e-12)
+        lo = _global_extreme(torch.min(out), MIN, group)
+        hi = _global_extreme(torch.max(out), MAX, group)
+        scale = (torch.clamp(hi - lo, min=1e-12)
                  / torch.full_like(lo, 255.0))
         q = torch.round((out - lo) / scale).to(torch.uint8)
         return (q, lo.float(), scale.float())
     if transfer_dtype == "int4":
-        lo = torch.amin(out, dim=0)
-        scale = (torch.clamp(torch.amax(out, dim=0) - lo, min=1e-12)
+        lo = _global_extreme(torch.amin(out, dim=0), MIN, group)
+        hi = _global_extreme(torch.amax(out, dim=0), MAX, group)
+        scale = (torch.clamp(hi - lo, min=1e-12)
                  / torch.full_like(lo, 15.0))
         q = torch.round((out - lo) / scale).to(torch.uint8)
         if q.shape[1] % 2:
@@ -122,7 +143,7 @@ def _decode_rows(head, valid: int) -> np.ndarray:
 class EmbedderBuilder:
     """Generic embedder (reference embedder.py:19-50). The forward runs on
     the card unless ``cuda=False`` or ``device="cpu"``; the network must
-    live on that device."""
+    live on that device. ``mesh``: see the module."""
 
     def __init__(self, network=None, network_path=None, feature_path=None,
                  output_path=None, cuda=True, batch_size=5000, mesh=None,
@@ -130,19 +151,29 @@ class EmbedderBuilder:
         if network is None:
             raise ValueError("network is None.")
         assert transfer_dtype in ("float32", "bfloat16", "int8", "int4")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"EmbedderBuilder(mesh={mesh!r}) is not ported to "
-                "abnet3_torch yet (ROADMAP.md A11)")
         self.network = network
         self.network_path = network_path
         self.feature_path = feature_path
         self.output_path = output_path
         self.cuda = cuda
         self.device = resolve_device(device, cuda)
+        if isinstance(mesh, dict):
+            from abnet3_torch.parallel import make_mesh
+            mesh = make_mesh(n_data=mesh.get("data"),
+                             n_model=mesh.get("model", 1),
+                             device=self.device)
         self.mesh = mesh
         self.transfer_dtype = transfer_dtype
         self.streaming = streaming
+        self._n_data = 1
+        self._data_group = None
+        if mesh is not None:
+            from abnet3_torch.parallel import mesh_shape
+            self._n_data = n_data = mesh_shape(mesh)["data"]
+            if n_data > 1:
+                self._data_group = mesh.get_group("data")
+            # chunk rows divide evenly over the data axis
+            batch_size = ((batch_size + n_data - 1) // n_data) * n_data
         self.batch_size = batch_size
 
     def _load(self):
@@ -153,7 +184,33 @@ class EmbedderBuilder:
         if self.network.device != self.device:
             raise ValueError(f"the network lives on {self.network.device}, "
                              f"the embedder runs on {self.device}")
+        self._shard_network()
         print("Done loading network weights")
+
+    def _shard_network(self):
+        """Shard the towers over the mesh's 'model' axis, once."""
+        if self.mesh is not None and getattr(self.network, "_mesh",
+                                             None) is None:
+            from abnet3_torch.parallel import shard_network
+            shard_network(self.network, self.mesh)
+
+    def _rank_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a chunk's rows (the chunk itself without
+        a mesh)."""
+        if self._data_group is None:
+            return x
+        from abnet3_torch.parallel import shard_array
+        return shard_array(x, self.mesh, ("data",))
+
+    def _encode(self, out: torch.Tensor):
+        """:func:`encode_transfer` of one head; on a mesh over the whole
+        chunk (global scalars, the ranks' codes gathered in row order)."""
+        leaves = encode_transfer(out, self.transfer_dtype,
+                                 group=self._data_group)
+        if self._data_group is None:
+            return leaves
+        return (mesh_dist.all_gather_rows(leaves[0], self._data_group,
+                                          self._n_data),) + tuple(leaves[1:])
 
     def _forward_fn(self):
         """(rows, d) float32 tensor on the network's device -> a tuple of
@@ -162,30 +219,32 @@ class EmbedderBuilder:
         d_out) embeddings; one branch in eval mode (the network's mode is
         restored after each call)."""
         network = self.network
-        transfer_dtype = self.transfer_dtype
+        self._shard_network()
 
         @torch.no_grad()
         def forward(x):
             was_training = network.training
             network.eval()
             try:
-                out = network.forward_once(x)
+                out = network.forward_once(self._rank_rows(x))
             finally:
                 network.train(was_training)
             heads = tuple(out) if isinstance(out, (tuple, list)) else (out,)
-            return tuple(encode_transfer(h, transfer_dtype) for h in heads)
+            return tuple(self._encode(h) for h in heads)
 
         return forward
 
     def _pad_target(self, n: int) -> int:
         """Padded row count for a tail chunk: the smallest rung of a /4
-        ladder under batch_size (floored at 256 rows) that holds ``n``;
-        full chunks stay at batch_size. A short tail does not pay for a
-        full chunk of padding, and the chunk shapes stay few."""
-        floor = 256
+        ladder under batch_size (floored at 256 rows, rounded up to the
+        mesh's 'data' axis) that holds ``n``; full chunks stay at
+        batch_size. A short tail does not pay for a full chunk of padding,
+        and the chunk shapes stay few."""
+        n_data = self._n_data
+        floor = max(256, n_data)
         sizes = [self.batch_size]
         while sizes[-1] // 4 >= floor:
-            sizes.append(sizes[-1] // 4)
+            sizes.append(-(-(sizes[-1] // 4) // n_data) * n_data)
         for s in sorted(sizes):
             if n <= s:
                 return s
@@ -347,15 +406,20 @@ class EmbedderBuilder:
         """Embed ``feature_path`` into one h5features file a head
         (``output_path`` + each of ``suffixes``), replacing any file
         already there: the whole corpus at once, or streamed item by item
-        with ``streaming=True``."""
+        with ``streaming=True``. On a mesh rank 0 writes; every rank
+        returns once the files are there."""
         from abnet3_torch.io.h5f import (iter_h5features, read_h5features,
                                          write_h5features)
         paths = [self.output_path + suffix for suffix in suffixes]
+        writes = mesh_dist.is_writer()
         if self.streaming:
-            for path in paths:
-                if os.path.exists(path):
-                    os.remove(path)
-            writers = [_BatchedWriter(path, "features") for path in paths]
+            writers = []
+            if writes:
+                for path in paths:
+                    if os.path.exists(path):
+                        os.remove(path)
+                writers = [_BatchedWriter(path, "features")
+                           for path in paths]
 
             def on_done(item, labels, embs):
                 for writer, e in zip(writers, embs):
@@ -367,6 +431,7 @@ class EmbedderBuilder:
                     on_done, n_outputs=len(paths))
             for writer in writers:
                 writer.flush()
+            mesh_dist.barrier()
             return
         data = read_h5features(self.feature_path, "features")
         print("Done loading input feature file")
@@ -375,11 +440,12 @@ class EmbedderBuilder:
                                        n_outputs=len(paths))
         if len(paths) == 1:
             heads = (heads,)
-        for path, embs in zip(paths, heads):
+        for path, embs in zip(paths, heads if writes else ()):
             if os.path.exists(path):
                 os.remove(path)
             write_h5features(path, "features", data.items(), data.labels(),
                              embs)
+        mesh_dist.barrier()
 
     def embed(self):
         raise NotImplementedError("Unimplemented embed for class:",
@@ -434,19 +500,20 @@ class MultimodalEmbedder(EmbedderBuilder):
         network = self.network
         unit = network.integration_unit
         want_attention = bool(self.observers)
-        transfer_dtype = self.transfer_dtype
+        self._shard_network()
 
         @torch.no_grad()
         def forward(*xs):
+            xs = [self._rank_rows(x) for x in xs]
             was_training = network.training
             network.eval()
             try:
                 if want_attention:
                     unit._last_weight = None
-                emb = network.forward_once(list(xs))
+                emb = network.forward_once(xs)
             finally:
                 network.train(was_training)
-            heads = [encode_transfer(emb, transfer_dtype)]
+            heads = [self._encode(emb)]
             if want_attention:
                 # None: the unit is frozen to a scalar (headstart)
                 w = unit._last_weight
@@ -454,7 +521,7 @@ class MultimodalEmbedder(EmbedderBuilder):
                     w = torch.full((xs[0].shape[0], 1),
                                    float(unit.get_weights()),
                                    device=emb.device)
-                heads.append(encode_transfer(w, transfer_dtype))
+                heads.append(self._encode(w))
             return tuple(heads)
 
         return forward
@@ -497,14 +564,16 @@ class MultimodalEmbedder(EmbedderBuilder):
             cols.append([fs[idx[it]] for it in items])
         with stage_trace("embed"):
             embeddings, weights = self.embed_modalities(cols)
-        path = self.output_path + "embedded.features"
-        if os.path.exists(path):
-            os.remove(path)
-        write_h5features(path, "features", items, times, embeddings)
-        if weights is not None:
-            for observer in self.observers:
-                observer.record_arrays(weights)
-                observer.save(items, times)
+        if mesh_dist.is_writer():
+            path = self.output_path + "embedded.features"
+            if os.path.exists(path):
+                os.remove(path)
+            write_h5features(path, "features", items, times, embeddings)
+            if weights is not None:
+                for observer in self.observers:
+                    observer.record_arrays(weights)
+                    observer.save(items, times)
+        mesh_dist.barrier()
 
 
 class _BatchedWriter:

@@ -27,8 +27,14 @@ non-empty cells.
 
 Every DTW distance on the card takes the CUDA kernel and every one on the
 CPU its plain version; the matmuls run in full float32 whatever the
-global TF32 setting (:func:`full_float32`). ``mesh`` is not ported yet
-(it raises ``NotImplementedError``).
+global TF32 setting (:func:`full_float32`).
+
+With a ``mesh`` (one process per GPU) the pair batches and the tile rows
+are split over the mesh's 'data' axis: each rank runs the stats kernel on
+its block and the blocks are gathered, so every rank holds the whole
+matrix (equal to world size 1's: each pair's DTW does not depend on the
+layout); rank 0 alone writes a checkpoint, and the device matrix is
+row-sharded (:func:`abnet3_torch.eval.abx_device.upload_matrix`).
 """
 
 from __future__ import annotations
@@ -53,9 +59,24 @@ __all__ = ["make_pair_distance_fn", "distance_matrix", "abx_error",
            "read_item_file", "evaluate", "main", "full_float32"]
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported to abnet3_torch yet "
-                              "(ROADMAP.md A11)")
+def _n_data(mesh) -> int:
+    if mesh is None:
+        return 1
+    return int(mesh.size(mesh.mesh_dim_names.index("data")))
+
+
+def _rows_on_mesh(mesh, rows: int, compute):
+    """``compute(start, stop)`` of this rank's block of ``rows`` rows
+    (a multiple of the 'data' axis), gathered in row order: the whole
+    (rows, ...) result on every rank; ``compute(0, rows)`` without a
+    mesh."""
+    n = _n_data(mesh)
+    if n == 1:
+        return compute(0, rows)
+    from abnet3_torch.dist import all_gather_rows, block
+    rank = mesh.get_local_rank("data")
+    return all_gather_rows(compute(*block(rows, n, rank)),
+                           mesh.get_group("data"), n)
 
 
 def _masked_mean_pool(f: torch.Tensor, n: torch.Tensor, T: int
@@ -80,13 +101,25 @@ def _ids(ids: np.ndarray, device) -> torch.Tensor:
 def make_pair_distance_fn(bank, distance: str = "dtw_cos",
                           max_frames: Optional[int] = None, mesh=None):
     """(ids1, ids2) -> (B,) normalized token distances over a TokenBank,
-    ids as (B,) tensors on the bank's device."""
-    if mesh is not None:
-        _unported("make_pair_distance_fn(mesh=...)")
+    ids as (B,) tensors on the bank's device. With a ``mesh`` each rank
+    computes its block of the pairs (padded to the 'data' axis) and the
+    distances are gathered."""
     assert distance in ("dtw_cos", "dtw_kl", "mean_cos")
     T = _frames(bank, max_frames)
+    n_data = _n_data(mesh)
 
     def fn(ids1: torch.Tensor, ids2: torch.Tensor) -> torch.Tensor:
+        if n_data == 1:
+            return local(ids1, ids2)
+        B = ids1.shape[0]
+        pad = (-B) % n_data
+        if pad:
+            zero = ids1.new_zeros(pad)
+            ids1, ids2 = torch.cat([ids1, zero]), torch.cat([ids2, zero])
+        return _rows_on_mesh(mesh, B + pad, lambda a, b: local(
+            ids1[a:b], ids2[a:b]))[:B]
+
+    def local(ids1: torch.Tensor, ids2: torch.Tensor) -> torch.Tensor:
         with torch.no_grad(), full_float32():
             f1, n1 = bank.take(ids1, T)
             f2, n2 = bank.take(ids2, T)
@@ -156,14 +189,14 @@ def _decode_tile_u16(q: np.ndarray, out_dtype) -> np.ndarray:
 
 
 def _pairs_distance_matrix(bank, distance, batch_size, max_frames,
-                           out_dtype) -> np.ndarray:
+                           out_dtype, mesh=None) -> np.ndarray:
     """Flat pair-stream strategy: fixed-size (ids1, ids2) batches of the
     upper triangle (tail padded with pair (0, 0), discarded), a window of
     batches in flight on the card before the oldest is copied back."""
     N = len(bank)
     device = bank.bank.device
     fn = make_pair_distance_fn(bank, distance=distance,
-                               max_frames=max_frames)
+                               max_frames=max_frames, mesh=mesh)
     iu = np.triu_indices(N, k=1)
     ids1_all = iu[0].astype(np.int64)
     ids2_all = iu[1].astype(np.int64)
@@ -198,21 +231,26 @@ def _pairs_distance_matrix(bank, distance, batch_size, max_frames,
 _TILE_MIN_TOKENS = 2048
 
 
-def _dtw_tile_fn(bank, distance: str, T: int, block: int):
+def _dtw_tile_fn(bank, distance: str, T: int, block: int,
+                 n_rows: Optional[int] = None):
     """(ids_i, ids_j) host id arrays of one tile -> its (block, block)
-    float32 distances on the card. Each row scores one anchor against the
-    tile's column tokens: the anchor-form distance rows (T, block, T) from
-    one matmul, then ONE stats-kernel launch on them, read in place."""
+    float32 distances on the card, or with ``n_rows`` the (n_rows, block)
+    distances of ``n_rows`` anchors (one rank's rows on a mesh). Each row
+    scores one anchor against the tile's column tokens: the anchor-form
+    distance rows (T, block, T) from one matmul, then ONE stats-kernel
+    launch on them, read in place."""
     device = bank.bank.device
     Tc = _frames(bank, T)
     kl = distance == "dtw_kl"
     n1 = torch.empty(block, dtype=torch.int32, device=device)
+    n_rows = block if n_rows is None else n_rows
 
     def tile(ids_i: np.ndarray, ids_j: np.ndarray) -> torch.Tensor:
         fj, nj = bank.take(_ids(ids_j, device), T)
         nj = nj.to(torch.int32).contiguous()
         y_unit = None if kl else unit_frames(fj)
-        out = torch.empty((block, block), dtype=torch.float32, device=device)
+        out = torch.empty((n_rows, block), dtype=torch.float32,
+                          device=device)
         for r, i in enumerate(ids_i.tolist()):
             fi = bank.bank[i, :Tc]
             if kl:
@@ -298,7 +336,8 @@ class _DeviceTiles:
 
 def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
                            out_dtype, checkpoint_path=None, device_out=False,
-                           host_out=True, device_rows_per_block=None):
+                           host_out=True, device_rows_per_block=None,
+                           mesh=None):
     """Tile strategy: token ids split into tiles of ``block`` ids; only
     the upper tiles run, results mirror. Tiles leave the card u16-coded
     (float32 for dtw_kl) and dequantize on the host; with ``device_out``
@@ -307,7 +346,9 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
     device = bank.bank.device
     T = max_frames if max_frames is not None else bank.max_len
     u16_wire = distance != "dtw_kl"
-    block = _auto_block(N, T, batch_size, itemsize=2 if u16_wire else 4,
+    n_data = _n_data(mesh)
+    block = _auto_block(N, T, batch_size, n_data=n_data,
+                        itemsize=2 if u16_wire else 4,
                         fetch_capped=host_out)
     encode = _encode_tile_u16 if u16_wire else (lambda d: d)
     decode = (_decode_tile_u16 if u16_wire
@@ -320,7 +361,14 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
             v2 = pooled[_ids(ids_j, device)]
             return pairwise_angular_distance(v1[None], v2[None])[0]
     else:
-        tile = _dtw_tile_fn(bank, distance, T, block)
+        tile = _dtw_tile_fn(bank, distance, T, block, block // n_data)
+    if n_data > 1:
+        row_tile = tile
+
+        def tile(ids_i, ids_j):
+            # this rank's rows of the tile, gathered
+            return _rows_on_mesh(mesh, len(ids_i), lambda a, b: row_tile(
+                ids_i[a:b], ids_j))
 
     n_tiles = (N + block - 1) // block
     starts = [t * block for t in range(n_tiles)]
@@ -371,9 +419,17 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
                 print("distance_matrix: discarding stale checkpoint "
                       f"at {checkpoint_path} (layout changed: "
                       f"{recorded} != {meta})")
-        D = np.lib.format.open_memmap(
-            mat_path, mode="r+" if resume else "w+", dtype=out_dtype,
-            shape=(N, N))
+        from abnet3_torch.dist import barrier, is_writer
+        writes = is_writer()
+        # every rank has read the checkpoint before rank 0 writes it
+        barrier()
+        if writes:
+            D = np.lib.format.open_memmap(
+                mat_path, mode="r+" if resume else "w+", dtype=out_dtype,
+                shape=(N, N))
+        else:  # another rank of a mesh: rank 0 keeps the checkpoint
+            D = (np.array(np.load(mat_path, mmap_mode="r")) if resume
+                 else np.zeros((N, N), out_dtype))
         if resume and done:
             print(f"distance_matrix: resuming {checkpoint_path}: "
                   f"{len(done)}/{n_tiles * (n_tiles + 1) // 2} tiles "
@@ -381,6 +437,8 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
 
         def record(ti, tj):
             done.add((ti, tj))
+            if not writes:
+                return
             D.flush()
             tmp = prog_path + ".tmp"
             with open(tmp, "w") as f:
@@ -392,10 +450,14 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
         def record(ti, tj):
             pass
 
-    # tiles restored from a checkpoint never reached the card: the device
-    # matrix is then uploaded from the finished host matrix
+    # tiles restored from a checkpoint never reached the card, and a
+    # mesh row-shards the finished host matrix: the device matrix is then
+    # uploaded from it
     dev = (_DeviceTiles(N, Np, rows_pb, u16_wire, device)
-           if device_out and not done else None)
+           if device_out and not done and mesh is None else None)
+    # on a mesh the tiles' wire values, row-sharded at the end
+    wire = (np.zeros((N, N), np.uint16 if u16_wire else np.float32)
+            if device_out and not done and mesh is not None else None)
     pending: List[Tuple[int, int, torch.Tensor]] = []
     window = 4
 
@@ -404,15 +466,21 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
         i0, j0 = starts[ti], starts[tj]
         ni = min(block, N - i0)
         nj = min(block, N - j0)
-        vals = decode(out.cpu().numpy()[:ni, :nj], out_dtype)
+        raw = out.cpu().numpy()[:ni, :nj]
+        vals = decode(raw, out_dtype)
         if tj == ti:
             # a diagonal tile computes both orders of each pair, and
             # DTW(i,j) vs DTW(j,i) may round one u16 step apart: mirror
             # the upper triangle so the matrix is exactly symmetric
             vals = np.triu(vals) + np.triu(vals, 1).T
+            raw = np.triu(raw) + np.triu(raw, 1).T
         D[i0:i0 + ni, j0:j0 + nj] = vals
         if tj != ti:
             D[j0:j0 + nj, i0:i0 + ni] = vals.T
+        if wire is not None:
+            wire[i0:i0 + ni, j0:j0 + nj] = raw
+            if tj != ti:
+                wire[j0:j0 + nj, i0:i0 + ni] = raw.T
         record(ti, tj)
 
     for ti in range(n_tiles):
@@ -435,6 +503,14 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
         return D
     if dev is not None:
         return D, dev.handle()
+    if mesh is not None:
+        # the tiles' wire values, as the mesh-free device matrix holds
+        # them (a resumed checkpoint uploads its host matrix, as there)
+        if wire is not None:
+            np.fill_diagonal(wire, 0)
+        return D, abx_device.upload_matrix(
+            wire if wire is not None else np.asarray(D), device=device,
+            mesh=mesh)
     if rows_pb is not None:
         # lazy host blocks straight over the checkpoint memmap: no copy
         # of the whole matrix, one block on the card at a time
@@ -484,11 +560,20 @@ def distance_matrix(bank, distance: str = "dtw_cos",
     no tile: the first element of the pair is ``None``, and the tile side
     loses its 2 MB fetch cap.
 
-    ``mesh`` is not ported (ROADMAP A11)."""
+    ``mesh``: the pair batches or the tile rows split over the mesh's
+    'data' axis and gathered (the tile side a multiple of the axis, as
+    in the JAX package); every rank returns the whole host matrix, and
+    with ``device_out`` its rows of the row-sharded device matrix
+    (:func:`abnet3_torch.eval.abx_device.upload_matrix`), built from the
+    host matrix: ``host_out`` and ``device_rows_per_block`` stay at
+    their defaults."""
     assert distance in ("dtw_cos", "dtw_kl", "mean_cos")
     assert strategy in ("auto", "pairs", "tiles")
-    if mesh is not None:
-        _unported(f"distance_matrix(mesh={mesh!r})")
+    if mesh is not None and (not host_out
+                             or device_rows_per_block is not None):
+        raise ValueError("a mesh row-shards the device matrix from the "
+                         "host matrix: host_out=False and "
+                         "device_rows_per_block do not apply")
     if not host_out:
         if not device_out:
             raise ValueError("host_out=False without device_out=True "
@@ -508,15 +593,16 @@ def distance_matrix(bank, distance: str = "dtw_cos",
                                    and distance != "mean_cos"
                                    and N < _TILE_MIN_TOKENS):
             D = _pairs_distance_matrix(bank, distance, batch_size,
-                                       max_frames, out_dtype)
+                                       max_frames, out_dtype, mesh=mesh)
             if device_out:
                 return D, abx_device.upload_matrix(
-                    D, device=bank.bank.device)
+                    D, device=bank.bank.device, mesh=mesh)
             return D
         return _tiles_distance_matrix(
             bank, distance, batch_size, max_frames, out_dtype,
             checkpoint_path=checkpoint_path, device_out=device_out,
-            host_out=host_out, device_rows_per_block=device_rows_per_block)
+            host_out=host_out, device_rows_per_block=device_rows_per_block,
+            mesh=mesh)
 
 
 def _block_err(dab: np.ndarray, dax: np.ndarray,
@@ -890,7 +976,10 @@ def evaluate(features_path: str, classes_path: str,
 
     ``checkpoint_path`` makes the distance stage resumable and
     ``device_rows_per_block`` lays the device matrix out in row blocks
-    (:func:`distance_matrix`). ``mesh`` is not ported (ROADMAP A11).
+    (:func:`distance_matrix`). ``mesh`` (or a YAML dict ``{data: N}``)
+    splits the distance stage and the device scorer over the mesh's
+    'data' axis (:func:`distance_matrix`); every rank returns the result
+    and rank 0 alone writes ``cells_path``.
     """
     from abnet3_torch.io.h5f import iter_h5features
     from abnet3_torch.ops.bank import TokenBank
@@ -900,8 +989,10 @@ def evaluate(features_path: str, classes_path: str,
 
     device = resolve_device(device)
     assert score_backend in ("auto", "host", "device")
-    if mesh is not None:
-        _unported("evaluate(mesh=...)")
+    if isinstance(mesh, dict):
+        from abnet3_torch.parallel import make_mesh
+        mesh = make_mesh(n_data=mesh.get("data"),
+                         n_model=mesh.get("model", 1), device=device)
     spkid = read_spkid_file(spkid_file) if spkid_file else None
     # token specs (label, file, on, off, speaker-or-None, by-key) in
     # inventory order, grouped by file for the single streaming pass
@@ -995,8 +1086,10 @@ def evaluate(features_path: str, classes_path: str,
         bank, distance=distance, batch_size=batch_size,
         max_frames=max_frames, out_dtype=out_dtype,
         checkpoint_path=checkpoint_path, device_out=use_device,
-        host_out=(not use_device) or checkpoint_path is not None,
-        device_rows_per_block=device_rows_per_block if use_device else None)
+        host_out=((not use_device) or checkpoint_path is not None
+                  or mesh is not None),
+        device_rows_per_block=device_rows_per_block if use_device else None,
+        mesh=mesh)
     want_cells = cells_path is not None
     if use_device:
         out = abx_device.abx_error_device(result[1], labels, speakers,
@@ -1006,8 +1099,11 @@ def evaluate(features_path: str, classes_path: str,
         out = abx_error(result, labels, speakers, task=task, by=by,
                         n_jobs=n_jobs, return_cells=want_cells)
     if want_cells:
-        _write_cells_csv(cells_path, out.pop("cells"), task,
-                         item_by if item_by else None)
+        from abnet3_torch.dist import is_writer
+        cells = out.pop("cells")
+        if is_writer():
+            _write_cells_csv(cells_path, cells, task,
+                             item_by if item_by else None)
         out["cells_csv"] = cells_path
     # n_classes reports the INVENTORY's class count (stable metadata even
     # when a class's tokens all resolve to empty feature segments)

@@ -46,7 +46,16 @@ one at a time, so a matrix larger than the card's memory scores off a
 devices, and the offset keeps order and equality.
 
 A CPU matrix is scored on the CPU and a CUDA matrix on the card; nothing
-falls back from one to the other. ``mesh`` is not ported (ROADMAP A11).
+falls back from one to the other.
+
+Mesh
+----
+``upload_matrix(mesh=...)`` row-shards the matrix over the mesh's 'data'
+axis (one process per GPU): each rank holds one block of Np / n_data
+rows (Np padded up to the axis), exclusive with ``rows_per_block`` and
+``lazy`` as in the JAX package. The scorer then scores the anchors of its
+rows only and sums the count bins over 'data' before the fetch; the
+counts are exact integers, so the result is bit-identical to one rank's.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from abnet3_torch.utils import pow2_bucket, resolve_device
 
@@ -98,11 +108,12 @@ class DeviceMatrix:
     case is one block, also ``.array``. ``n`` is the true token count:
     buffers may pad beyond it (whole tiles, whole blocks). ``lazy``: the
     blocks are host arrays, copied to ``device`` one at a time while
-    scoring."""
+    scoring. ``mesh``: the one block is this rank's rows of a matrix
+    row-sharded over the mesh's 'data' axis."""
 
     def __init__(self, array=None, n: int = 0, blocks=None,
                  row_starts: Optional[Sequence[int]] = None,
-                 lazy: bool = False, device=None):
+                 lazy: bool = False, device=None, mesh=None):
         if blocks is None:
             assert array is not None
             blocks = [array]
@@ -116,6 +127,14 @@ class DeviceMatrix:
                        else self.blocks[0].device)
         assert not self.lazy or device is not None, \
             "lazy blocks need the device they are scored on"
+        self.mesh = mesh
+        self.group = None
+        if mesh is not None:
+            assert len(self.blocks) == 1 and not self.lazy, \
+                "mesh sharding, row blocks and lazy blocks are exclusive"
+            n_data = int(mesh.size(mesh.mesh_dim_names.index("data")))
+            if n_data > 1:
+                self.group = mesh.get_group("data")
 
     @property
     def array(self):
@@ -133,8 +152,14 @@ class DeviceMatrix:
         return min(row // self.rows_per_block, len(self.blocks) - 1)
 
     def numpy(self) -> np.ndarray:
-        """The (n, n) matrix on the host, u16 codes back as uint16."""
-        parts = [b if self.lazy else b.cpu().numpy() for b in self.blocks]
+        """The (n, n) matrix on the host, u16 codes back as uint16 (on a
+        mesh gathered from every rank: a collective)."""
+        blocks = self.blocks
+        if self.group is not None:
+            from abnet3_torch.dist import all_gather_rows
+            blocks = [all_gather_rows(self.blocks[0], self.group,
+                                      dist.get_world_size(self.group))]
+        parts = [b if self.lazy else b.cpu().numpy() for b in blocks]
         m = np.concatenate(parts, axis=0)[:self.n, :self.n]
         if m.dtype == np.int16:
             m = (m.astype(np.int32) + U16_OFFSET).astype(np.uint16)
@@ -155,12 +180,27 @@ def upload_matrix(D: np.ndarray, rows_per_block: Optional[int] = None,
     ``rows_per_block``: store as row blocks of that height. ``lazy`` (with
     ``rows_per_block``): keep the blocks on the host as views of ``D``
     (which may be an ``np.memmap``); the scorer copies one block at a
-    time to the device."""
-    if mesh is not None:
-        raise NotImplementedError("upload_matrix(mesh=...) is not ported "
-                                  "to abnet3_torch yet (ROADMAP.md A11)")
+    time to the device.
+
+    ``mesh``: row-shard over the mesh's 'data' axis (see the module);
+    exclusive with ``rows_per_block`` and ``lazy``."""
     device = resolve_device(device)
     N = D.shape[0]
+    if mesh is not None:
+        if rows_per_block is not None or lazy:
+            raise ValueError("mesh sharding and rows_per_block / lazy "
+                             "blocks are exclusive")
+        from abnet3_torch.dist import block
+        n_data = int(mesh.size(mesh.mesh_dim_names.index("data")))
+        rank = mesh.get_local_rank("data") if n_data > 1 else 0
+        Np = -(-N // n_data) * n_data
+        r0, r1 = block(Np, n_data, rank)
+        rows = np.asarray(D[r0:min(r1, N)])
+        if r1 > N:  # padded rows: never an anchor
+            rows = np.concatenate([rows, np.zeros((r1 - max(r0, N), N),
+                                                  rows.dtype)])
+        return DeviceMatrix(blocks=[_host_to_wire(rows).to(device)],
+                            row_starts=[r0], n=N, mesh=mesh)
     if lazy:
         if rows_per_block is None:
             raise ValueError("lazy blocks need rows_per_block")
@@ -521,6 +561,10 @@ def abx_error_device(D, labels: Sequence, speakers: Sequence,
             [([], [], []) for _ in range(n_blocks)]
         for p in range(n_pools):
             anchors = by_pool[p]
+            if dm.mesh is not None:
+                # this rank's rows only; the bins are summed below
+                r0 = dm.row_starts[0]
+                anchors = anchors[(anchors >= r0) & (anchors < r0 + rows_pb)]
             if n_blocks > 1:
                 owners = np.minimum(anchors // rows_pb, n_blocks - 1)
                 splits = [anchors[owners == b] for b in range(n_blocks)]
@@ -569,6 +613,9 @@ def abx_error_device(D, labels: Sequence, speakers: Sequence,
                 _score_chunk(blk, dm.row_starts[b], statics, chunk_tabs,
                              i, gt_bins, eq_bins)
             del blk
+        if dm.group is not None:
+            dist.all_reduce(gt_bins, group=dm.group)
+            dist.all_reduce(eq_bins, group=dm.group)
         rs = (np.arange(n_rows) if occ_rows is None else occ_rows)
         gt = np.zeros((n_rows, Ccols), np.float32)
         eq = np.zeros((n_rows, Ccols), np.float32)

@@ -17,6 +17,13 @@ trainer and the embedder); without them every stage runs on the card.
 ``num_jobs`` runs the grid's experiments in a spawn pool, worker k on card
 k mod the number of cards. ``yaml`` is imported only where a YAML file is
 read or written.
+
+A mesh runs one process per GPU: ``torchrun --nproc_per_node N -m
+abnet3_torch.gridsearch exp.yaml`` with ``mesh: {data: N}`` (and
+``model: M``) among the trainer's and the embedder's arguments (and the
+abx block's). Each rank takes card LOCAL_RANK; rank 0 alone writes the
+shared files (features, pair files, ``exp.yml``, weights, embeddings,
+``abx.json``) and the other ranks wait for it, then read them.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Dict, List
 
 import torch
 
+from abnet3_torch.dist import barrier, from_writer, is_writer
 import abnet3_torch.dataloader
 import abnet3_torch.embedder
 import abnet3_torch.features
@@ -115,6 +123,8 @@ class GridSearch:
         now = datetime.datetime.now().isoformat()
         if self.date is not None:
             now = self.date
+        # every rank of a mesh run names the experiments as rank 0 does
+        now = from_writer(now)
 
         for submodule, submodule_params in grid_params.items():
             for param, values in (submodule_params.get("arguments")
@@ -218,16 +228,24 @@ class GridSearch:
             shutil.rmtree(sampler.directory_output)
         sampler.sample()
 
+    @staticmethod
+    def _on_rank0(fn):
+        """``fn()`` on the rank that writes shared files; the others wait
+        for it (every process without a mesh runs it)."""
+        if is_writer():
+            fn()
+        barrier()
+
     def _prerun_once_stages(self, single_experiment):
         """Execute run='once' features/sampler stages serially (before
         the parallel workers start, which would race on their outputs)."""
         os.makedirs(single_experiment["pathname_experience"], exist_ok=True)
         features, sampler = self._instantiate(single_experiment)[:2]
         if features.run == "once":
-            features.generate()
+            self._on_rank0(features.generate)
             self.features_run = True
         if sampler.run == "once":
-            self._sample_fresh(sampler)
+            self._on_rank0(lambda: self._sample_fresh(sampler))
             self.sampler_run = True
 
     def run_single_experiment(self, single_experiment=None, gpu_id=0):
@@ -239,9 +257,10 @@ class GridSearch:
             assert single_experiment[stage], f"{stage} properties missing"
 
         os.makedirs(single_experiment["pathname_experience"], exist_ok=True)
-        with open(os.path.join(single_experiment["pathname_experience"],
-                               "exp.yml"), "w") as f:
-            yaml.dump(single_experiment, f, default_flow_style=False)
+        if is_writer():
+            with open(os.path.join(single_experiment["pathname_experience"],
+                                   "exp.yml"), "w") as f:
+                yaml.dump(single_experiment, f, default_flow_style=False)
 
         (features, sampler, model, loss, dataloader, trainer,
          embedder) = self._instantiate(single_experiment)
@@ -255,21 +274,23 @@ class GridSearch:
             if features.run == "never":
                 pass
             elif features.run == "once" and not self.features_run:
-                features.generate()
+                self._on_rank0(features.generate)
                 self.features_run = True
             elif features.run == "always":
-                features.generate()
-            elif features.run == "if_none" and not os.path.isfile(
-                    features.output_path):
-                features.generate()
+                self._on_rank0(features.generate)
+            elif features.run == "if_none":
+                # rank 0 alone tests the file: another rank could see it
+                # while rank 0 writes it
+                self._on_rank0(lambda: os.path.isfile(
+                    features.output_path) or features.generate())
 
             if sampler.run == "never":
                 pass
             elif sampler.run == "once" and not self.sampler_run:
-                self._sample_fresh(sampler)
+                self._on_rank0(lambda: self._sample_fresh(sampler))
                 self.sampler_run = True
             elif sampler.run == "always":
-                self._sample_fresh(sampler)
+                self._on_rank0(lambda: self._sample_fresh(sampler))
 
             trainer.train()
             embedder.embed()
@@ -317,8 +338,9 @@ class GridSearch:
         result = evaluate(emb_path, classes, **args)
         out = os.path.join(single_experiment["pathname_experience"],
                            "abx.json")
-        with open(out, "w") as f:
-            f.write(json.dumps(result) + "\n")
+        if is_writer():
+            with open(out, "w") as f:
+                f.write(json.dumps(result) + "\n")
         print("ABX (%s, %s): error=%.4f over %d triplets -> %s"
               % (result["task"], result["distance"], result["error"],
                  result["n_triplets"], out))
@@ -343,7 +365,7 @@ class GridSearch:
             arguments["files"] = test_wavs
             arguments["vad_file"] = vad_file
             arguments["output_path"] = test_features
-            features_class(**arguments).generate()
+            self._on_rank0(features_class(**arguments).generate)
 
         embedder_prop = single_experiment["embedder"]
         embedder_class = _stage_class(abnet3_torch.embedder,
@@ -362,7 +384,14 @@ class GridSearch:
     def run(self):
         """Run all grid experiments, in parallel worker processes when
         ``num_jobs`` > 1 (the reference declared num_jobs and left it
-        unimplemented, reference gridsearch.py:299-300)."""
+        unimplemented, reference gridsearch.py:299-300). Under
+        ``torchrun`` every rank runs every experiment as one rank of its
+        mesh."""
+        from abnet3_torch.parallel.mesh import init_from_env
+        ranks = init_from_env()
+        if ranks and self.num_jobs and self.num_jobs > 1:
+            raise ValueError("num_jobs > 1 runs experiments in worker "
+                             "processes; under torchrun use num_jobs 1")
         grid_experiments = self.build_grid_experiments()
         print("Start the grid search ...")
         if self.num_jobs and self.num_jobs > 1 and len(grid_experiments) > 1:
@@ -381,7 +410,9 @@ class GridSearch:
                            self.features_run, self.sampler_run)
                           for k, exp in enumerate(grid_experiments)])
             return
-        if self.gpu_ids is not None and torch.cuda.is_available():
+        # under torchrun init_from_env took card LOCAL_RANK
+        if (not ranks and self.gpu_ids is not None
+                and torch.cuda.is_available()):
             torch.cuda.set_device(int(self.gpu_ids))
         for index, exp in enumerate(grid_experiments):
             print("Starting exp {} : {}".format(

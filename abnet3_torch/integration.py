@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from abnet3_torch.nn import ACTIVATIONS, Tower, TowerSpec
+from abnet3_torch.dist import is_writer
 from abnet3_torch.serialize import load_pytree, save_pytree
 from abnet3_torch.utils import expand_dimension_list
 from abnet3_torch.weights import JaxLayout, jax_param_tree, load_jax_numpy
@@ -66,6 +67,8 @@ class IntegrationUnitBuilder(nn.Module):
     def save(self, epoch=""):
         params = jax_param_tree(
             self, lambda path, key, p: p.detach().cpu().numpy().copy())
+        if not is_writer():  # on a mesh rank 0 writes
+            return
         save_pytree(self.output_path + str(epoch) + "integration.pth",
                     {"params": params},
                     meta={"class_name": self.__class__.__name__})

@@ -7,6 +7,11 @@ distributions, e.g. softmax outputs) and the multitask
 ``weights`` vector so padded frames of ragged device batches contribute
 zero loss, and the cell hooks the matrix-mode train step
 (:mod:`abnet3_torch.parallel.mesh`) reduces under the DTW path mask.
+
+In a step sharded over a mesh's 'data' axis each rank holds a block of
+the batch: a weighted mean then divides the rank's weighted sum by the
+global weight sum (:func:`abnet3_torch.dist.global_sum`), so the
+ranks' values (and gradients) add up to the global batch's.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from abnet3_torch.dist import active, global_sum
 
 __all__ = ["cosine_similarity", "normalize_rows", "coscos2_fn",
            "cosmargin_fn", "kl_loss_fn", "coscos2_from_cos",
@@ -49,9 +56,14 @@ def _reduce(values: torch.Tensor, weights: Optional[torch.Tensor],
     if weights is not None:
         total = torch.sum(values * weights)
         if avg:
-            return total / torch.clamp(torch.sum(weights), min=1.0)
+            return total / torch.clamp(global_sum(torch.sum(weights)),
+                                       min=1.0)
         return total
     if avg:
+        shard = active()
+        if shard is not None and shard.data_group is not None:
+            n = torch.tensor(float(values.numel()), device=values.device)
+            return torch.sum(values) / global_sum(n)
         return torch.mean(values)
     return torch.sum(values)
 
@@ -164,7 +176,7 @@ class LossBuilder:
         total = same_sum + torch.sum(self.cell_values(rest_cells, y_rest)
                                      * w_rest)
         if self.avg:
-            denom = same_wsum + torch.sum(w_rest)
+            denom = global_sum(same_wsum + torch.sum(w_rest))
             return total / torch.clamp(denom, min=1.0)
         return total
 

@@ -21,6 +21,7 @@ from torch import nn
 
 from abnet3_torch.models.siamese import NetworkBuilder
 from abnet3_torch.nn import ForwardReplay, Tower, TowerSpec
+from abnet3_torch import dist as mesh_dist
 from abnet3_torch.utils import expand_dimension_list, resolve_device
 from abnet3_torch.weights import JaxLayout
 
@@ -156,9 +157,17 @@ class MultimodalSiameseNetwork(NetworkBuilder):
         modality masks."""
         m1 = m2 = None
         if self.training and hasattr(self.integration_unit, "draw_masks"):
-            n = (x1_list[0] if isinstance(x1_list, (list, tuple))
-                 else x1_list).shape[0]
-            m1, m2 = self.integration_unit.draw_masks(n, self._generator)
+            x = (x1_list[0] if isinstance(x1_list, (list, tuple))
+                 else x1_list)
+            shard = mesh_dist.active()
+            if shard is None or shard.n_data == 1:
+                m1, m2 = self.integration_unit.draw_masks(x.shape[0],
+                                                          self._generator)
+            else:
+                # one rank's rows of the global batch's masks
+                rows, n = shard.rows(x.shape[0], x.device)
+                m1, m2 = self.integration_unit.draw_masks(n, self._generator)
+                m1, m2 = m1[rows], m2[rows]
         out1 = self.forward_once(x1_list, weights=weights,
                                  integration_mask=m1)
         out2 = self.forward_once(x2_list, weights=weights,

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from abnet3_torch.nn import ForwardReplay, Tower, TowerSpec
+from abnet3_torch.dist import is_writer
 from abnet3_torch.serialize import load_pytree, save_pytree
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import JaxLayout, load_jax_numpy, to_jax_numpy
@@ -97,12 +98,15 @@ class NetworkBuilder(nn.Module):
 
     # -- parameter persistence ------------------------------------------
     def save_network(self, epoch=""):
+        """``<output_path><epoch>.pth``; on a mesh every rank calls it (the
+        shards are gathered) and rank 0 writes."""
         assert self.output_path is not None, "output_path not set"
         assert self._initialised, "network not initialised"
         params, state = to_jax_numpy(self)
-        save_pytree(self.output_path + str(epoch) + ".pth",
-                    {"params": params, "state": state},
-                    meta={"class_name": self.__class__.__name__})
+        if is_writer():
+            save_pytree(self.output_path + str(epoch) + ".pth",
+                        {"params": params, "state": state},
+                        meta={"class_name": self.__class__.__name__})
 
     def load_network(self, network_path=None):
         tree, _ = load_pytree(network_path)
@@ -117,7 +121,9 @@ class SiameseNetwork(NetworkBuilder):
     same as hidden, None = linear output). Dims are
     ``input_dim -> hidden_dim -> (num_hidden_layers x hidden_dim) ->
     output_dim``. ``device`` defaults to the card (see
-    :func:`abnet3_torch.utils.resolve_device`).
+    :func:`abnet3_torch.utils.resolve_device`). ``compute_dtype=
+    'bfloat16'`` runs the layers' products in bf16 with float32 outputs
+    (:func:`abnet3_torch.nn.bf16_matmul`); the weights stay float32.
     """
 
     def __init__(self, input_dim=None, num_hidden_layers=None,
@@ -133,10 +139,7 @@ class SiameseNetwork(NetworkBuilder):
         assert isinstance(hidden_dim, int), "hidden dim should be int"
         assert isinstance(num_hidden_layers, int)
         assert isinstance(output_dim, int), "output dim should be int"
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                "abnet3_torch runs the towers in float32 only "
-                f"(compute_dtype={compute_dtype!r})")
+        assert compute_dtype in ("float32", "bfloat16"), compute_dtype
 
         self.input_dim = input_dim
         self.num_hidden_layers = num_hidden_layers
@@ -161,7 +164,8 @@ class SiameseNetwork(NetworkBuilder):
         acts = [activation_layer] * (1 + num_hidden_layers) + [last_act]
         self.tower = Tower(TowerSpec(
             dims, acts, p_dropout=p_dropout, batch_norm=batch_norm,
-            type_init=type_init, gain_activation=activation_layer),
+            type_init=type_init, gain_activation=activation_layer,
+            compute_dtype=compute_dtype),
             device=resolve_device(device))
 
     def jax_towers(self):

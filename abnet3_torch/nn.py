@@ -11,6 +11,17 @@ unbiased running variance uses the weight sum (``abnet3_tpu/nn.py:237-261``).
 Weight init follows torch semantics: xavier_uniform / xavier_normal /
 orthogonal with ``calculate_gain(activation)`` (reference model.py:25-27,
 172-177), drawn from an explicit ``torch.Generator``.
+
+``compute_dtype='bfloat16'`` runs each layer's product as the JAX package
+does (``abnet3_tpu/nn.py:226-229``): both operands rounded to bf16, a
+float32 product and output (:func:`bf16_matmul`); parameters, the bias
+add, batch norm and the activations stay float32.
+
+Under a mesh (:mod:`abnet3_torch.dist`) a layer may hold a column
+block of its parameters ('model' axis) and a step's rows may be one
+rank's block of the global batch ('data' axis); the forward then gathers
+the columns after the batch norm, takes the batch-norm statistics over
+the global batch and the dropout masks of the global batch.
 """
 
 from __future__ import annotations
@@ -21,8 +32,59 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from abnet3_torch import dist as mesh_dist
+
 __all__ = ["ACTIVATIONS", "calculate_gain", "init_dense", "Dense", "Tower",
-           "TowerSpec", "ForwardReplay", "count_params"]
+           "TowerSpec", "ForwardReplay", "count_params", "bf16_matmul",
+           "bf16_matmul_plain", "COMPUTE_DTYPES"]
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+class _BF16Matmul(torch.autograd.Function):
+    """x (N, k) @ w (k, m) with both rounded to bf16 and a float32 product
+    (JAX's ``jnp.dot(x.astype(bf16), w.astype(bf16),
+    preferred_element_type=float32)``). Backward as JAX's transpose rule:
+    the float32 cotangent ``g`` (not rounded) times the bf16-valued other
+    operand in float32, each result rounded to bf16 and back (the
+    cotangent of the bf16 cast)."""
+
+    @staticmethod
+    def forward(ctx, x, w, plain):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        if plain:
+            return xb.float() @ wb.float()
+        # bf16 x bf16 -> float32 on the tensor cores, float32 accumulation
+        return torch.mm(xb, wb, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _bf16_round(g @ wb.float().t())
+        if ctx.needs_input_grad[1]:
+            gw = _bf16_round(xb.float().t() @ g)
+        return gx, gw, None
+
+
+def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The bf16 product of a tower layer: on a CUDA tensor the tensor-core
+    GEMM (``aten::mm.dtype``, bf16 inputs, float32 output), on a CPU
+    tensor :func:`bf16_matmul_plain`; the same backward on both."""
+    return _BF16Matmul.apply(x, w, not x.is_cuda)
+
+
+def bf16_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version: ``x.to(bf16).float() @ w.to(bf16).float()`` (a
+    product of two bf16 values is exact in float32, so only the summation
+    order differs from the GEMM), with :func:`bf16_matmul`'s backward."""
+    return _BF16Matmul.apply(x, w, True)
 
 
 ACTIVATIONS = {
@@ -91,8 +153,10 @@ class TowerSpec:
                  activations: Sequence[Optional[str]],
                  p_dropout: float = 0.0, batch_norm: bool = False,
                  type_init: str = "xavier_uni",
-                 gain_activation: Optional[str] = None):
+                 gain_activation: Optional[str] = None,
+                 compute_dtype: str = "float32"):
         assert len(activations) == len(dims) - 1
+        assert compute_dtype in COMPUTE_DTYPES, compute_dtype
         self.dims = list(dims)
         self.activations = list(activations)
         self.p_dropout = float(p_dropout)
@@ -101,6 +165,8 @@ class TowerSpec:
         # torch applies one gain (from the main activation) to every layer
         # (reference model.py:172-177)
         self.gain_activation = gain_activation
+        # mixed precision: the products in bf16 with a float32 output
+        self.compute_dtype = compute_dtype
 
     @property
     def num_layers(self) -> int:
@@ -163,7 +229,8 @@ class Tower(nn.Module):
                         p_dropout=spec.p_dropout,
                         batch_norm=spec.batch_norm,
                         type_init=spec.type_init,
-                        gain_activation=spec.gain_activation)
+                        gain_activation=spec.gain_activation,
+                        compute_dtype=spec.compute_dtype)
         return Tower(sub, bn_momentum=self.bn_momentum, bn_eps=self.bn_eps,
                      layers=self.layers[s:e + 1])
 
@@ -175,9 +242,10 @@ class Tower(nn.Module):
         for layer in self.layers:
             # draw on the generator's device, then copy: the same seed
             # gives the same weights whatever device the tower lives on
-            fresh = init_dense(generator, *layer.w.shape,
+            # (and, on a 'model' axis, this rank's columns of them)
+            fresh = init_dense(generator, *mesh_dist.full_shape(layer.w),
                                self.spec.type_init, gain)
-            layer.w.copy_(fresh["w"])
+            layer.w.copy_(mesh_dist.local_part(layer.w, fresh["w"]))
             layer.b.zero_()
             if self.spec.batch_norm:
                 layer.bn_scale.fill_(1.0)
@@ -196,15 +264,18 @@ class Tower(nn.Module):
         (the multimodal attention's inputs, reference utils.py:313-352)."""
         spec = self.spec
         drop = self.training and spec.p_dropout > 0.0
+        shard = mesh_dist.active()
         partials = []
         for i, layer in enumerate(self.layers):
             if save_partials:
                 partials.append(x)
-            x = x @ layer.w + layer.b
+            cols = getattr(layer.w, "_col_shard", None)
+            if cols is not None:
+                x = mesh_dist.copy_to_model(x, cols.group)
+            x = self._matmul(x, layer.w) + layer.b
             if drop:
                 keep = 1.0 - spec.p_dropout
-                mask = torch.rand(x.shape, generator=generator,
-                                  device=x.device) < keep
+                mask = self._keep_mask(x, generator, shard, cols) < keep
                 x = torch.where(mask, x / keep, 0.0)
             if spec.batch_norm:
                 if self.training:
@@ -218,15 +289,51 @@ class Tower(nn.Module):
                     mean, var = layer.bn_mean, layer.bn_var
                 x = ((x - mean) * torch.rsqrt(var + self.bn_eps)
                      * layer.bn_scale + layer.bn_bias)
+            if cols is not None:
+                x = mesh_dist.gather_model(
+                    x, cols.group, cols.n,
+                    cols.start // (cols.stop - cols.start))
             x = ACTIVATIONS[spec.activations[i]](x)
         if save_partials:
             return x, partials
         return x
 
+    def _matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.spec.compute_dtype == "bfloat16":
+            return bf16_matmul(x, w)
+        return x @ w
+
+    @staticmethod
+    def _keep_mask(x, generator, shard, cols) -> torch.Tensor:
+        """Uniform draws deciding dropout: one per element of ``x``, or,
+        for one rank's block of a sharded step (its rows of the global
+        batch, its columns on a 'model' axis), that block of the global
+        batch's draws, so the masks do not depend on the mesh."""
+        if cols is None and (shard is None or shard.n_data == 1):
+            return torch.rand(x.shape, generator=generator, device=x.device)
+        if shard is None:
+            rows, n = torch.arange(x.shape[0], device=x.device), x.shape[0]
+        else:
+            rows, n = shard.rows(x.shape[0], x.device)
+        width = x.shape[1] if cols is None else cols.full
+        u = torch.rand((n, width), generator=generator, device=x.device)[rows]
+        return u if cols is None else u[:, cols.start:cols.stop]
+
     @staticmethod
     def _batch_stats(x: torch.Tensor, weights: Optional[torch.Tensor]):
         """(mean, biased var, unbiased var) over the rows, weighted by
-        ``weights`` when given."""
+        ``weights`` when given; in a sharded step over the global batch
+        (the sums taken over 'data', the gradient flowing through)."""
+        shard = mesh_dist.active()
+        if shard is not None and shard.data_group is not None:
+            if weights is None:
+                weights = torch.ones(x.shape[0], device=x.device)
+            w = weights[:, None]
+            wsum = torch.clamp(mesh_dist.global_sum(weights.sum()), min=1.0)
+            mean = mesh_dist.all_reduce_sum((x * w).sum(0)) / wsum
+            var = mesh_dist.all_reduce_sum(
+                (w * (x - mean) ** 2).sum(0)) / wsum
+            return mean, var, var * wsum / torch.clamp(wsum - 1.0, min=1.0)
         if weights is not None:
             w = weights[:, None]
             wsum = torch.clamp(weights.sum(), min=1.0)

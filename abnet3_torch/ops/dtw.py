@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["pairwise_angular_distance", "unit_frames",
-           "anchor_angular_distance_rows",
+           "anchor_angular_distance_rows", "dtw_path_stats_auto",
            "pairwise_kl_distance", "anchor_kl_distance_rows", "dtw_costs",
            "moves_from_costs", "onpath_from_moves", "dtw_path_from_dist",
            "dtw_path_stats", "dtw_path_stats_rows", "dtw_moves_auto",
@@ -234,12 +234,38 @@ def onpath_from_moves(move: torch.Tensor, n1: torch.Tensor,
     return out
 
 
+def _on_data_axis(mesh, fn, dist, n1, n2):
+    """``fn(dist, n1, n2)`` of a global batch of pairs. On a ``mesh`` with
+    a 'data' axis of several ranks each rank runs ``fn`` (its kernel) on
+    its block of the pairs (padded to a multiple of the axis with
+    zero-distance pairs of length 1), and the blocks are gathered over
+    'data': every rank returns the global result, as the JAX package's
+    ``shard_map`` does. Without a mesh, or on an axis of 1, ``fn`` of the
+    whole batch, with no collective."""
+    if mesh is None:
+        return fn(dist, n1, n2)
+    from abnet3_torch.dist import Shard, all_gather_rows
+    shard = Shard(mesh)
+    if shard.n_data == 1:
+        return fn(dist, n1, n2)
+    n = dist.shape[0]
+    out = fn(*shard.take("p", [dist, n1, n2], [0.0, 1, 1]))
+
+    def gather(t):
+        return all_gather_rows(t, shard.data_group, shard.n_data)[:n]
+    return tuple(map(gather, out)) if isinstance(out, tuple) else gather(out)
+
+
 def dtw_path_from_dist(dist: torch.Tensor, n1: torch.Tensor,
-                       n2: torch.Tensor) -> torch.Tensor:
+                       n2: torch.Tensor, mesh=None) -> torch.Tensor:
     """Alignment-path mask A (B, T1, T2) float32 from a distance tensor:
     A[b, i, j] = 1 exactly on the backtrace-path cells, A.sum((1, 2)) is
     the path length. A CUDA tensor runs the hand-written kernel, a CPU
-    tensor the plain version."""
+    tensor the plain version. With a ``mesh`` each rank launches the
+    kernel on its block of the pairs and the masks are gathered
+    (``dtw_path_pallas_sharded``, see :func:`_on_data_axis`)."""
+    if mesh is not None:
+        return _on_data_axis(mesh, dtw_path_from_dist, dist, n1, n2)
     from abnet3_torch.ops import cuda_dtw
     if dist.is_cuda:
         return cuda_dtw.dtw_path_cuda(dist.float().contiguous(),
@@ -268,6 +294,15 @@ def dtw_path_stats(dist: torch.Tensor, n1: torch.Tensor,
             _last_dim_contiguous(dist), n1.to(torch.int32).contiguous(),
             n2.to(torch.int32).contiguous())
     return cuda_dtw.dtw_path_stats_plain(dist, n1, n2)
+
+
+def dtw_path_stats_auto(dist: torch.Tensor, n1: torch.Tensor,
+                        n2: torch.Tensor, mesh=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dtw_path_stats`; with a ``mesh`` each rank runs its block
+    of the pairs and the statistics are gathered (the JAX package's
+    ``shard_map`` over 'data', see :func:`_on_data_axis`)."""
+    return _on_data_axis(mesh, dtw_path_stats, dist, n1, n2)
 
 
 def dtw_path_stats_rows(dist_rows: torch.Tensor, n1: torch.Tensor,
@@ -331,10 +366,14 @@ def dtw_backtrace(D: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
 
 
 def dtw_align_from_dist(dist: torch.Tensor, n1: torch.Tensor,
-                        n2: torch.Tensor
+                        n2: torch.Tensor, mesh=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Alignment paths from a distance tensor: the move kernel (on a CUDA
-    tensor) or its plain version, then :func:`walk_moves`."""
+    tensor) or its plain version, then :func:`walk_moves`. With a
+    ``mesh`` each rank aligns its block of the pairs and the paths are
+    gathered (``dtw_moves_pallas_sharded``, see :func:`_on_data_axis`)."""
+    if mesh is not None:
+        return _on_data_axis(mesh, dtw_align_from_dist, dist, n1, n2)
     return walk_moves(dtw_moves_auto(dist), n1, n2)
 
 

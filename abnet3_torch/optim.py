@@ -120,7 +120,14 @@ class LBFGS(torch.optim.Optimizer):
     on the optimizer ``count``, ``weights_memory`` and, of
     ``ScaleByZoomLinesearchState``, ``learning_rate``, ``value`` and the
     info ``num_linesearch_steps``, ``decrease_error``,
-    ``curvature_error``."""
+    ``curvature_error``.
+
+    Over parameters column-sharded on a mesh's 'model' axis (see
+    :func:`abnet3_torch.parallel.mesh.shard_network`) the flat vector is
+    this rank's block: every inner product is summed over 'model' (a
+    replicated parameter counts once) and the finite-step guard agrees
+    across the group, so the ranks take the same steps. The loss values
+    the closure returns are global already."""
 
     takes_closure = True
 
@@ -136,6 +143,14 @@ class LBFGS(torch.optim.Optimizer):
         n = sum(self._numels)
         kw = dict(dtype=p0.dtype, device=p0.device)
         self._np = np.dtype(str(p0.dtype).replace("torch.", "")).type
+        shards = [getattr(p, "_col_shard", None) for p in self._params]
+        self._model = next((sh for sh in shards if sh is not None), None)
+        if self._model is not None:
+            # a replicated parameter's share of the summed inner product
+            self._dot_weight = torch.cat([
+                torch.full((k,), 1.0 if sh is not None
+                           else 1.0 / self._model.n, **kw)
+                for k, sh in zip(self._numels, shards)])
         self._flat = {name: torch.zeros(n, **kw)
                       for name in ("params", "updates", "grad")}
         for name in ("diff_params_memory", "diff_updates_memory"):
@@ -157,6 +172,16 @@ class LBFGS(torch.optim.Optimizer):
             off += k
 
     # -- flat vectors ------------------------------------------------------
+
+    def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The inner product of two flat vectors (over the whole
+        parameter vector on a 'model' axis)."""
+        if self._model is None:
+            return torch.dot(a, b)
+        import torch.distributed as dist
+        d = torch.dot(a * self._dot_weight, b)
+        dist.all_reduce(d, group=self._model.group)
+        return d
 
     def _flat_params(self) -> torch.Tensor:
         return torch.cat([p.detach().reshape(-1) for p in self._params])
@@ -195,7 +220,7 @@ class LBFGS(torch.optim.Optimizer):
         if self.count > 0:
             dparams = x0 - self._flat["params"]
             dupdates = grads - self._flat["updates"]
-            vdot = torch.dot(dupdates, dparams)
+            vdot = self._dot(dupdates, dparams)
             weight = torch.where(vdot == 0.0, 0.0, 1.0 / vdot)
         else:
             dparams = torch.zeros_like(grads)
@@ -205,22 +230,22 @@ class LBFGS(torch.optim.Optimizer):
         dum[prev] = dupdates
         rho[prev] = weight
         if self.count > 0:
-            den = torch.dot(dupdates, dupdates)
+            den = self._dot(dupdates, dupdates)
             scale = torch.where(den > 0.0, vdot / den, 1.0)
         else:
-            scale = torch.clamp(1.0 / torch.sqrt(torch.dot(grads, grads)),
+            scale = torch.clamp(1.0 / torch.sqrt(self._dot(grads, grads)),
                                 max=1.0)
         order = [(mem_idx + k) % m for k in range(m)]
         vec = grads
         alphas = [None] * m
         for k in reversed(range(m)):
             i = order[k]
-            alphas[k] = rho[i] * torch.dot(dpm[i], vec)
+            alphas[k] = rho[i] * self._dot(dpm[i], vec)
             vec = vec + (-alphas[k]) * dum[i]
         vec = scale * vec
         for k in range(m):
             i = order[k]
-            beta = rho[i] * torch.dot(dum[i], vec)
+            beta = rho[i] * self._dot(dum[i], vec)
             vec = vec + (alphas[k] - beta) * dpm[i]
         return vec, old_row
 
@@ -243,10 +268,10 @@ class LBFGS(torch.optim.Optimizer):
             with torch.enable_grad():
                 v = closure()
             g = self._flat_grads()
-            v_host, slope = self._host(v, torch.dot(g, updates))
+            v_host, slope = self._host(v, self._dot(g, updates))
             return v_host, g, slope
 
-        v0, slope0 = self._host(value, torch.dot(updates, grads))
+        v0, slope0 = self._host(value, self._dot(updates, grads))
         ls = _ZoomLinesearch(self._np, _LBFGS_MAX_LINESEARCH)
         final = ls.run(v0, grads, slope0, value_and_slope)
         lr = final["stepsize"]
@@ -256,7 +281,8 @@ class LBFGS(torch.optim.Optimizer):
              self._flat["diff_updates_memory"], self.weights_memory,
              final["grad"]],
             [lr, final["value"], final["decrease_error"],
-             final["curvature_error"]])
+             final["curvature_error"]],
+            None if self._model is None else self._model.group)
         if not ok:
             prev, dp, du, w = old_row
             self._flat["diff_params_memory"][prev] = dp
@@ -276,13 +302,18 @@ class LBFGS(torch.optim.Optimizer):
         return value
 
 
-def _all_finite(tensors, scalars) -> bool:
+def _all_finite(tensors, scalars, group=None) -> bool:
     """Whether every float of ``tensors`` (device) and ``scalars`` (host)
-    is finite, with one read of the device."""
+    is finite, with one read of the device; with a ``group``, on every
+    rank of it (the tensors are each rank's block)."""
     if not all(np.isfinite(s) for s in scalars):
         return False
-    return bool(torch.stack([torch.isfinite(t).all() for t in tensors])
-                .all())
+    ok = torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    if group is not None:
+        import torch.distributed as dist
+        ok = ok.to(torch.int32)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+    return bool(ok)
 
 
 class _ZoomLinesearch:

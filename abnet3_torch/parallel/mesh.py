@@ -2,12 +2,21 @@
 batches.
 
 The counterpart of ``abnet3_tpu/parallel/mesh.py`` (same file name, so
-the two are easy to pair) on one device: no mesh and no K-chaining (a
-dispatch trick of jit; the trainer keeps its step order instead). Each
-factory returns steps that take the batch's tensors on the network's
-device and return the loss as a 0-d device tensor; a train step also
-updates the parameters (``optimizer``) and the batch-norm buffers in
-place.
+the two are easy to pair), with no K-chaining (a dispatch trick of jit;
+the trainer keeps its step order instead). Each factory returns steps
+that take the batch's tensors on the network's device and return the
+loss as a 0-d device tensor; a train step also updates the parameters
+(``optimizer``) and the batch-norm buffers in place.
+
+Every factory takes a ``mesh`` (:func:`make_mesh`, one process per GPU)
+and keeps global-batch semantics: each rank gets the same global batch,
+pads every group of rows (same pairs, diff pairs, mixed pairs, tcl
+pairs, frame rows) to a multiple of n_data with zero-weight entries and
+runs its contiguous block, kernels included, inside
+:func:`abnet3_torch.dist.sharded`; the loss and the gradients
+(summed over 'data') equal the global batch's up to summation order
+(see :mod:`abnet3_torch.dist`). ``mesh=None`` runs no collective
+and starts no process group.
 
 ``extra_labels=True`` trains the multitask family
 (``SiameseMultitaskNetwork`` with ``weighted_loss_multi``): the batches
@@ -67,16 +76,20 @@ matrix mode are the batch-norm weights of the gathered rows).
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
 import torch
 
+from abnet3_torch import dist as mesh_dist
 from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
                                   dtw_align_from_dist, dtw_path_from_dist,
                                   gather_aligned, pairwise_angular_distance)
 
-__all__ = ["make_split_pair_train_step", "make_pair_train_step",
+__all__ = ["make_mesh", "mesh_shape", "param_shardings", "shard_array",
+           "shard_network", "make_split_pair_train_step",
+           "make_pair_train_step",
            "make_frame_train_step", "make_fused_train_step",
            "make_frame_pair_steps", "make_sampled_train_step",
            "make_sampled_eval_step", "use_matrix_loss"]
@@ -104,6 +117,201 @@ def use_matrix_loss(loss, override: Optional[bool] = None,
     return getattr(loss, "supports_cells", False)
 
 
+def init_from_env() -> bool:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment): start
+    the process group from the environment, NCCL with card LOCAL_RANK
+    where there is a card, gloo otherwise, once. Returns whether this
+    process is one of several."""
+    import torch.distributed as dist
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return False
+    if not dist.is_initialized():
+        if torch.cuda.is_available():
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(
+            "nccl" if torch.cuda.is_available() else "gloo")
+    return True
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
+              device=None):
+    """A ('data', 'model') device mesh over the processes of the started
+    process group, one process per GPU (``torchrun --nproc_per_node N``,
+    or ranks spawned with the ``spawn`` start method): a
+    ``torch.distributed.device_mesh.DeviceMesh``. ``n_data`` defaults to
+    world size // n_model. Without a process group a (1, 1) mesh starts a
+    one-rank group itself (NCCL on the card, gloo on the CPU), so world
+    size 1 runs the same code; a larger mesh raises, naming the command.
+    ``device`` defaults to the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from abnet3_torch.utils import resolve_device
+    init_from_env()
+    dev = resolve_device(device)
+    n_model = int(n_model or 1)
+    if not dist.is_initialized():
+        need = (n_data or 1) * n_model
+        if need != 1:
+            raise RuntimeError(
+                f"a ({n_data}, {n_model}) mesh needs {need} processes, one "
+                f"per GPU: run torchrun --nproc_per_node {need} -m "
+                "abnet3_torch.gridsearch exp.yaml")
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1)
+    world = dist.get_world_size()
+    if n_data is None:
+        n_data = max(world // n_model, 1)
+    if n_data * n_model != world:
+        raise RuntimeError(
+            f"need {n_data * n_model} processes for a ({n_data}, {n_model}) "
+            f"mesh, have {world}: run torchrun --nproc_per_node "
+            f"{n_data * n_model} -m abnet3_torch.gridsearch exp.yaml")
+    return init_device_mesh(dev.type, (int(n_data), n_model),
+                            mesh_dim_names=("data", "model"))
+
+
+def mesh_shape(mesh) -> dict:
+    """{'data': n, 'model': m} of a mesh (the JAX mesh's ``shape``)."""
+    return {k: int(mesh.size(i)) for i, k in enumerate(mesh.mesh_dim_names)}
+
+
+def shard_array(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (one mesh axis name or
+    None per leading dimension, as a JAX ``PartitionSpec``): the
+    contiguous block of each named dimension (which must divide the
+    axis), the whole of the others."""
+    shape = mesh_shape(mesh)
+    for dim, name in enumerate(tuple(spec)):
+        if name is None:
+            continue
+        n = shape[name]
+        if n == 1:
+            continue
+        start, stop = mesh_dist.block(x.shape[dim], n,
+                                      mesh.get_local_rank(name))
+        x = x.narrow(dim, start, stop - start)
+    return x
+
+
+def param_shardings(network, mesh) -> dict:
+    """The tensor-parallel layout of a network's towers (JAX's rule: a
+    weight (in, out) splits ``out`` over 'model', biases and batch-norm
+    vectors follow): {parameter or buffer name: (dim, slice)} of the
+    block this rank holds; (None, slice(None)) for a replicated one
+    (every tensor on a 'model' axis of size 1)."""
+    n = mesh_shape(mesh)["model"]
+    rank = mesh.get_local_rank("model") if n > 1 else 0
+    tower_tensors = set()
+    for _, tower in network.jax_towers():
+        for layer in tower.layers:
+            tower_tensors.update(id(t) for t in
+                                 list(layer.parameters())
+                                 + list(layer.buffers()))
+    out = {}
+    for name, t in list(network.named_parameters()) + list(
+            network.named_buffers()):
+        if n == 1 or id(t) not in tower_tensors:
+            out[name] = (None, slice(None))
+            continue
+        dim = t.dim() - 1
+        width = t.shape[dim]
+        if width % n:
+            raise ValueError(f"{name}: {width} columns do not divide the "
+                             f"'model' axis of {n}")
+        start, stop = mesh_dist.block(width, n, rank)
+        out[name] = (dim, slice(start, stop))
+    return out
+
+
+@torch.no_grad()
+def shard_network(network, mesh):
+    """Keep this rank's column block of every tower tensor (see
+    :func:`param_shardings`) in place of the whole; each sharded tensor
+    records its block (``_col_shard``), which the forward, the weight
+    files and the checkpoints read. Build the optimizer afterwards. A
+    no-op on a 'model' axis of size 1. Returns ``network``."""
+    specs = param_shardings(network, mesh)
+    if mesh_shape(mesh)["model"] == 1:
+        return network
+    group = mesh.get_group("model")
+    n = mesh_shape(mesh)["model"]
+    mods = dict(network.named_modules())
+    for name, (dim, sl) in specs.items():
+        if dim is None:
+            continue
+        owner, _, attr = name.rpartition(".")
+        mod = mods[owner]
+        t = getattr(mod, attr)
+        local = t.detach().narrow(dim, sl.start, sl.stop - sl.start).clone()
+        if isinstance(t, torch.nn.Parameter):
+            local = torch.nn.Parameter(local, requires_grad=t.requires_grad)
+            setattr(mod, attr, local)
+        else:
+            mod.register_buffer(attr, local)
+        local._col_shard = mesh_dist.ColShard(dim, sl.start, sl.stop,
+                                              t.shape[dim], group, n)
+    network._mesh = mesh
+    return network
+
+
+def _frames(layout):
+    """The frame layout ``layout()`` of a sharded step's forward (see
+    :meth:`abnet3_torch.dist.Shard.frames`); nothing without a
+    mesh (``layout`` is not called)."""
+    shard = mesh_dist.active()
+    if shard is None or layout is None:
+        return contextlib.nullcontext()
+    return shard.frames(layout())
+
+
+def _both_sides(x1, side):
+    """The frame layout of ``network.forward(x1, x2)`` whose sides have
+    the layout ``side``: a siamese network runs [x1; x2] as one batch, a
+    multimodal one (lists of modalities) each side on its own."""
+    return list(side) if isinstance(x1, (list, tuple)) else list(side) * 2
+
+
+def _tcl_side(tcl):
+    return [("t", 1)] if tcl is not None else []
+
+
+def _groups_of(*specs):
+    """``groups`` for :func:`_on_mesh` from (name, indices, fills) specs;
+    a spec with no indices is left out."""
+    return lambda args: [sp for sp in specs if sp[1]]
+
+
+def _on_mesh(mesh, steps, groups):
+    """``steps`` (train_step, eval_step) over a global batch's arguments
+    as steps of one rank's block: ``groups(args)`` lists (name, arg
+    indices, fill values) of the argument groups sharing their rows; each
+    is padded and cut (:meth:`~abnet3_torch.dist.Shard.take`),
+    and the step runs inside :func:`~abnet3_torch.dist.sharded`.
+    The train step returns the global loss already (``_train_on``); the
+    eval step its block's share, summed here over 'data'."""
+    if mesh is None:
+        return steps
+
+    def wrap(step, reduce_out):
+        def run(*args):
+            shard = mesh_dist.Shard(mesh)
+            local = list(args)
+            for name, idx, fills in groups(args):
+                for i, t in zip(idx, shard.take(
+                        name, [args[i] for i in idx], fills)):
+                    local[i] = t
+            with mesh_dist.sharded(shard):
+                out = step(*local)
+                return mesh_dist.global_sum(out) if reduce_out else out
+        return run
+
+    train_step, eval_step = steps
+    return wrap(train_step, False), wrap(eval_step, True)
+
+
 def _opt_step(optimizer, value: torch.Tensor, closure) -> None:
     """``optimizer.step()`` after a backward of the loss ``value``; an
     optimizer that takes a closure (``takes_closure``, LBFGS) gets the
@@ -125,18 +333,23 @@ def _train_on(network, optimizer, evaluate) -> torch.Tensor:
     optimizer.zero_grad(set_to_none=True)
     replay = (network.replay()
               if getattr(optimizer, "takes_closure", False) else None)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     v = evaluate()
     v.backward()
+    # in a sharded step: the gradient and the loss of the global batch
+    mesh_dist.reduce_grads(params)
+    v = mesh_dist.global_sum(v.detach())
 
     def closure():
         with replay:
             optimizer.zero_grad(set_to_none=True)
             again = evaluate()
             again.backward()
-        return again.detach()
+        mesh_dist.reduce_grads(params)
+        return mesh_dist.global_sum(again.detach())
 
-    _opt_step(optimizer, v.detach(), closure)
-    return v.detach()
+    _opt_step(optimizer, v, closure)
+    return v
 
 
 def _diff_path_mask(p1d, p2d, plen_d, wd, T1: int, T2: int) -> torch.Tensor:
@@ -245,7 +458,8 @@ def _tcl_weights(tw, tcl: float, token_weight):
     token pairs' total weight ``token_weight`` (no gradient: the weights
     come from the batch and the alignment masks)."""
     return tw * (tcl / (1.0 - tcl)) * (
-        token_weight / torch.clamp(torch.sum(tw), min=1e-6))
+        mesh_dist.global_sum(token_weight)
+        / torch.clamp(mesh_dist.global_sum(torch.sum(tw)), min=1e-6))
 
 
 def _with_tcl_pairs(pairs, tcl_args, frame_bank, tcl: float):
@@ -320,18 +534,15 @@ def _frame_value(network, loss, x1, x2, y, w, y_spk=None):
     return loss(spk1, phn1, spk2, phn2, y_spk, y, weights=w)
 
 
-def make_frame_pair_steps(network, loss, optimizer):
-    """Train/eval steps over aligned frame pairs (the JAX trainer's
-    frame-pair step, and the gather mode's body). Both take x1, x2 (N, d),
-    y (N,), weights w (N,) and, for the multitask family, the speaker
-    labels y_spk (N,), on the network's device, and return the loss as a
-    0-d device tensor; ``w`` weighs the loss and, in training, the
-    batch-norm statistics. ``train_step`` also updates the parameters
-    (``optimizer``) and batch-norm buffers in place."""
+def _frame_pair_steps(network, loss, optimizer, side=None):
+    """(train_step, eval_step) over aligned frame pairs (x1, x2, y, w[,
+    y_spk]); ``side()``: the frame layout of one side in a sharded
+    step."""
 
     def train_step(x1, x2, y, w, y_spk=None):
-        return _train_on(network, optimizer, lambda: _frame_value(
-            network, loss, x1, x2, y, w, y_spk))
+        with _frames(side and (lambda: _both_sides(x1, side()))):
+            return _train_on(network, optimizer, lambda: _frame_value(
+                network, loss, x1, x2, y, w, y_spk))
 
     @torch.no_grad()
     def eval_step(x1, x2, y, w, y_spk=None):
@@ -341,13 +552,30 @@ def make_frame_pair_steps(network, loss, optimizer):
     return train_step, eval_step
 
 
-def _gather_steps(network, loss, optimizer, prepare):
+def make_frame_pair_steps(network, loss, optimizer, mesh=None):
+    """Train/eval steps over aligned frame pairs (the JAX trainer's
+    frame-pair step, and the gather mode's body). Both take x1, x2 (N, d),
+    y (N,), weights w (N,) and, for the multitask family, the speaker
+    labels y_spk (N,), on the network's device, and return the loss as a
+    0-d device tensor; ``w`` weighs the loss and, in training, the
+    batch-norm statistics. ``train_step`` also updates the parameters
+    (``optimizer``) and batch-norm buffers in place. With a ``mesh`` each
+    rank runs its block of the rows (padded with weight 0)."""
+    steps = _frame_pair_steps(network, loss, optimizer, lambda: [("p", 1)])
+    return _on_mesh(mesh, steps, lambda args: [
+        ("p", list(range(len(args))),
+         [0.0, 0.0, 1.0, 0.0, 1.0][:len(args)])])
+
+
+def _gather_steps(network, loss, optimizer, prepare, side=None):
     """(train_step, eval_step) of a gather mode: ``prepare(*args)`` (run
     under ``torch.no_grad()``) assembles the frame pairs (x1, x2, y, w[,
-    y_spk]) that the frame-pair step then takes."""
-    frame_train, frame_eval = make_frame_pair_steps(network, loss,
-                                                    optimizer)
+    y_spk]) that the frame-pair step then takes. ``side()``: the frame
+    layout of one side in a sharded step (the argument groups' rows per
+    entry)."""
     prepare = torch.no_grad()(prepare)
+    frame_train, frame_eval = _frame_pair_steps(network, loss, optimizer,
+                                                side)
 
     def train_step(*args):
         return frame_train(*prepare(*args))
@@ -358,15 +586,18 @@ def _gather_steps(network, loss, optimizer, prepare):
     return train_step, eval_step
 
 
-def _matrix_steps(network, optimizer, prepare, value):
+def _matrix_steps(network, optimizer, prepare, value, layout=None):
     """(train_step, eval_step) of a matrix mode: ``prepare(*args)`` (run
     under ``torch.no_grad()``) assembles the parts that do not depend on
-    the parameters, ``value(parts)`` computes the loss from them."""
+    the parameters, ``value(parts)`` computes the loss from them.
+    ``layout(parts)``: the frame layout of the unique-frame batch in a
+    sharded step."""
     prepare = torch.no_grad()(prepare)
 
     def train_step(*args):
         parts = prepare(*args)
-        return _train_on(network, optimizer, lambda: value(parts))
+        with _frames(layout and (lambda: layout(parts))):
+            return _train_on(network, optimizer, lambda: value(parts))
 
     @torch.no_grad()
     def eval_step(*args):
@@ -403,16 +634,28 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
                                max_frames: int = None,
                                matrix_loss: Optional[bool] = None,
                                frame_bank=None, tcl: float = 0.0,
-                               extra_labels: bool = False):
+                               extra_labels: bool = False, mesh=None):
     """Train/eval steps over SplitBankBatch index batches (static
     same/diff groups). Returns (train_step, eval_step); both take the
     device tensors (ids1s, ids2s, ws, ids1d, ids2d, wd), then with
     ``extra_labels`` the speaker labels (y_spk_s, y_spk_d) and with a
     ``frame_bank`` (tcl > 0, monotask only) the tcl group (i1, i2, y, w).
     ``max_frames`` is the batch's length bucket. ``matrix_loss`` picks
-    the mode (see :func:`use_matrix_loss`)."""
+    the mode (see :func:`use_matrix_loss`). With a ``mesh`` each rank
+    runs its block of the same pairs, of the diff pairs and of the tcl
+    pairs, each padded with weight 0 (JAX's ``fill_for``)."""
     _check_tcl(frame_bank, tcl, extra_labels)
     Tb = max_frames if max_frames is not None else bank.max_len
+    T_eff = min(Tb, bank.max_len)
+    spk = extra_labels
+    groups = _groups_of(
+        ("s", [0, 1, 2] + ([6] if spk else []), [0, 0, 0.0, 1.0]),
+        ("d", [3, 4, 5] + ([7] if spk else []), [0, 0, 0.0, 1.0]))
+    if frame_bank is not None:
+        n = 8 if spk else 6
+        groups = _groups_of(
+            ("s", [0, 1, 2], [0, 0, 0.0]), ("d", [3, 4, 5], [0, 0, 0.0]),
+            ("t", [n, n + 1, n + 2, n + 3], [0, 0, 1.0, 0.0]))
 
     def split_args(args):
         """(ids1s, ids2s, ws, ids1d, ids2d, wd), (yspk_s, yspk_d) or
@@ -430,7 +673,12 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
                                   *yspk),
                 tcl_args, frame_bank, tcl)
 
-        return _gather_steps(network, loss, optimizer, align)
+        def side():
+            return ([("s", 2 * T_eff - 1), ("d", T_eff)]
+                    + _tcl_side(frame_bank))
+
+        return _on_mesh(mesh, _gather_steps(network, loss, optimizer, align,
+                                            side), groups)
 
     def matrix_parts(*args):
         args, yspk, tcl_args = split_args(args)
@@ -480,7 +728,13 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
         return loss.from_parts(same_sum, torch.sum(A_s), c_rest, y_rest,
                                w_rest)
 
-    return _matrix_steps(network, optimizer, matrix_parts, matrix_value)
+    def layout(parts):
+        _, _, A_s, (_, T1d, T2d), tcl_terms, _ = parts
+        return ([("s", A_s.shape[1]), ("s", A_s.shape[2]), ("d", T1d),
+                 ("d", T2d)] + _tcl_side(tcl_terms) * 2)
+
+    return _on_mesh(mesh, _matrix_steps(network, optimizer, matrix_parts,
+                                        matrix_value, layout), groups)
 
 
 def _bank_align(bank, ids1, ids2, y_pair, pair_w,
@@ -568,7 +822,7 @@ def make_pair_train_step(network, loss, optimizer, bank,
                          max_frames: int = None,
                          matrix_loss: Optional[bool] = None,
                          frame_bank=None, tcl: float = 0.0,
-                         extra_labels: bool = False):
+                         extra_labels: bool = False, mesh=None):
     """Train/eval steps over BankBatch index batches of mixed pairs:
     every pair is (id1, id2, y, pair_weight); same-word pairs (y=+1) are
     DTW-aligned, diff-word pairs (y=-1) truncate/diagonal-aligned,
@@ -577,9 +831,17 @@ def make_pair_train_step(network, loss, optimizer, bank,
     (ids1, ids2, y, y_spk, pair_w), and with a ``frame_bank`` (tcl > 0,
     monotask only) the tcl group (i1, i2, y, w) after them. In matrix
     mode every pair's DP runs in the path-mask kernel, in gather mode in
-    the move kernel."""
+    the move kernel. With a ``mesh`` each rank runs its block of the
+    pairs and of the tcl pairs, padded with weight 0."""
     _check_tcl(frame_bank, tcl, extra_labels)
     T = max_frames if max_frames is not None else bank.max_len
+    T_eff = min(T, bank.max_len)
+    n_tok = 5 if extra_labels else 4
+    groups = _groups_of(
+        ("p", list(range(n_tok)),
+         [0, 0, 1.0, 1.0, 0.0] if extra_labels else [0, 0, 1.0, 0.0]),
+        ("t", list(range(n_tok, n_tok + 4)) if frame_bank is not None
+         else [], [0, 0, 1.0, 0.0]))
 
     def split_args(args):
         """(ids1, ids2, y, pair_w), the speaker labels or None, and the
@@ -597,7 +859,10 @@ def make_pair_train_step(network, loss, optimizer, bank,
                 _bank_align(bank, *args, align_different_words, T, y_spk),
                 tcl_args, frame_bank, tcl)
 
-        return _gather_steps(network, loss, optimizer, gather_prepare)
+        return _on_mesh(mesh, _gather_steps(
+            network, loss, optimizer, gather_prepare,
+            lambda: [("p", 2 * T_eff - 1)] + _tcl_side(frame_bank)),
+            groups)
 
     def matrix_prepare(*args):
         args, y_spk, tcl_args = split_args(args)
@@ -623,18 +888,26 @@ def make_pair_train_step(network, loss, optimizer, bank,
                                   e[n_tok:], tcl_terms)
         return loss.from_cells(c, y, weights=w)
 
-    return _matrix_steps(network, optimizer, matrix_prepare, matrix_value)
+    def layout(prepared):
+        (_, _, A, _), _, tcl_terms = prepared
+        return ([("p", A.shape[1]), ("p", A.shape[2])]
+                + _tcl_side(tcl_terms) * 2)
+
+    return _on_mesh(mesh, _matrix_steps(network, optimizer, matrix_prepare,
+                                        matrix_value, layout), groups)
 
 
 def make_frame_train_step(network, loss, optimizer, tables,
-                          multimodal: bool = False):
+                          multimodal: bool = False, mesh=None):
     """Train/eval steps over FrameBankBatch index batches against device
     frame tables: both take (i1, i2, y, w), gather X1 = table[i1] and X2
     = table[i2] and run the frame-pair step; weight-0 rows stay out of
     the loss and the batch-norm statistics. ``tables`` holds one (N, d)
     tensor per modality; with ``multimodal=True`` each side is the list
     ``[t[i] for t in tables]`` (``MultimodalSiameseNetwork.forward`` takes
-    lists, even of one modality), else the one table's rows."""
+    lists, even of one modality), else the one table's rows. With a
+    ``mesh`` each rank runs its block of the rows, padded with weight
+    0."""
     tables = tuple(tables)
     if not multimodal:
         (table,) = tables
@@ -644,7 +917,9 @@ def make_frame_train_step(network, loss, optimizer, tables,
             return [t[i1] for t in tables], [t[i2] for t in tables], y, w
         return table[i1], table[i2], y, w
 
-    return _gather_steps(network, loss, optimizer, gather)
+    return _on_mesh(mesh, _gather_steps(network, loss, optimizer, gather,
+                                        lambda: [("p", 1)]),
+                    _groups_of(("p", [0, 1, 2, 3], [0, 0, 1.0, 0.0])))
 
 
 def _align_and_flatten(f1s, f2s, n1s, n2s, f1d, f2d, n1d, n2d):
@@ -657,7 +932,7 @@ def _align_and_flatten(f1s, f2s, n1s, n2s, f1d, f2d, n1d, n2d):
 
 
 def make_fused_train_step(network, loss, optimizer,
-                          matrix_loss: Optional[bool] = None):
+                          matrix_loss: Optional[bool] = None, mesh=None):
     """One train step over raw padded pair batches: f1s, f2s (Bs, Ts, d)
     and n1s, n2s (Bs,) same-word pairs (DTW-aligned); f1d, f2d (Bd, Td, d)
     and n1d, n2d (Bd,) diff-word pairs (truncated). Returns
@@ -666,10 +941,33 @@ def make_fused_train_step(network, loss, optimizer,
     the loss. Matrix mode (see :func:`use_matrix_loss`) weighs the
     embedding cosines by the path masks (the path kernel on the card);
     gather mode gathers the frames along the walked paths (the move
-    kernel)."""
+    kernel). With a ``mesh`` each rank runs its block of each group; the
+    pairs carry no weights to pad with, so each group's size must divide
+    the 'data' axis (as the JAX package's sharding requires)."""
+    def groups(args):
+        n_data = mesh_shape(mesh)["data"]
+        for name, i in (("same", 0), ("diff", 4)):
+            assert args[i].shape[0] % n_data == 0, (
+                f"the fused step's {name} pairs ({args[i].shape[0]}) must "
+                f"divide the mesh 'data' axis ({n_data})")
+        return [("s", [0, 1, 2, 3], [0.0, 0.0, 1, 1]),
+                ("d", [4, 5, 6, 7], [0.0, 0.0, 1, 1])]
+
     if not use_matrix_loss(loss, matrix_loss):
-        return _gather_steps(network, loss, optimizer,
-                             _align_and_flatten)[0]
+        lengths = {}
+
+        def flatten(f1s, f2s, n1s, n2s, f1d, f2d, n1d, n2d):
+            # rows per pair: a same pair's path (T1+T2-1), a diff pair's
+            # truncation (max(T1, T2))
+            lengths["s"] = f1s.shape[1] + f2s.shape[1] - 1
+            lengths["d"] = max(f1d.shape[1], f2d.shape[1])
+            return _align_and_flatten(f1s, f2s, n1s, n2s, f1d, f2d, n1d,
+                                      n2d)
+
+        return _on_mesh(mesh, _gather_steps(
+            network, loss, optimizer, flatten,
+            lambda: [("s", lengths["s"]), ("d", lengths["d"])]),
+            groups)[0]
 
     def parts(f1s, f2s, n1s, n2s, f1d, f2d, n1d, n2d):
         ws = torch.ones(f1s.shape[0], device=f1s.device)
@@ -683,7 +981,13 @@ def make_fused_train_step(network, loss, optimizer,
         c, y, w, _ = _matrix_cell_terms(loss, e, A_s, A_d_parts)
         return loss.from_cells(c, y, weights=w)
 
-    return _matrix_steps(network, optimizer, parts, value)[0]
+    def layout(p):
+        _, _, A_s, (_, T1d, T2d) = p
+        return [("s", A_s.shape[1]), ("s", A_s.shape[2]), ("d", T1d),
+                ("d", T2d)]
+
+    return _on_mesh(mesh, _matrix_steps(network, optimizer, parts, value,
+                                        layout), groups)[0]
 
 
 def _sampled_prepare(bank, sampled, align_different_words: bool,
@@ -715,11 +1019,43 @@ def _sampled_apply(network, loss, prep) -> torch.Tensor:
     return _frame_value(network, loss, *parts)
 
 
+def _sampled_sharding(mesh, sampler):
+    """(shard factory, layout) of the sampled steps on ``mesh``: every
+    rank draws the global batch from the same generator and keeps its
+    block of the pairs. The batch must divide the 'data' axis (the JAX
+    package's assert)."""
+    if mesh is None:
+        return None
+    n_data = mesh_shape(mesh)["data"]
+    assert sampler.batch_size % n_data == 0, (
+        "sampler batch_size must divide the mesh 'data' axis so the "
+        "on-device batch shards evenly")
+    return lambda: mesh_dist.Shard(mesh)
+
+
+def _sampled_draw(sampler, generator, extra_labels, new_shard):
+    """One global draw of ``sampler`` and, on a mesh, the shard holding
+    this rank's block of it (or None)."""
+    sampled = sampler.sample(generator, with_speakers=extra_labels)
+    if new_shard is None:
+        return sampled, None
+    shard = new_shard()
+    return tuple(shard.take("p", list(sampled),
+                            [0, 0, 1.0, 1.0][:len(sampled)])), shard
+
+
+def _sampled_layout(prep, T):
+    """The frame layout of a prepared sampled batch at bank length T."""
+    if prep[0] == "matrix":
+        return [("p", T), ("p", T)]
+    return [("p", 2 * T - 1)] * 2
+
+
 def make_sampled_train_step(network, loss, optimizer, bank, sampler,
                             align_different_words: bool = False,
                             steps_per_call: int = 1,
                             matrix_loss: Optional[bool] = None,
-                            extra_labels: bool = False):
+                            extra_labels: bool = False, mesh=None):
     """The fully on-device train call: ``train_call(generator)`` runs
     ``steps_per_call`` steps, each drawing a fresh pair batch from
     ``sampler`` with ``generator`` (on the card), gathering its tokens
@@ -727,24 +1063,28 @@ def make_sampled_train_step(network, loss, optimizer, bank, sampler,
     returns the mean loss as a 0-d device tensor. Nothing is read back
     to the host inside a call (for optimizers other than LBFGS, whose
     linesearch reads its scalars). ``extra_labels`` trains the multitask
-    family: the sampler also draws the speaker labels."""
+    family: the sampler also draws the speaker labels. With a ``mesh``
+    every rank draws the global batch and runs its block of it."""
     if steps_per_call < 1:
         raise ValueError("steps_per_call must be >= 1")
     matrix = use_matrix_loss(loss, matrix_loss, extra_labels)
-
-    @torch.no_grad()
-    def prepare(generator):
-        return _sampled_prepare(
-            bank, sampler.sample(generator, with_speakers=extra_labels),
-            align_different_words, matrix)
+    new_shard = _sampled_sharding(mesh, sampler)
 
     def train_call(generator: torch.Generator) -> torch.Tensor:
         values = []
         for _ in range(steps_per_call):
-            prep = prepare(generator)
-            values.append(_train_on(
-                network, optimizer,
-                lambda: _sampled_apply(network, loss, prep)))
+            with torch.no_grad():
+                sampled, shard = _sampled_draw(sampler, generator,
+                                               extra_labels, new_shard)
+            with (mesh_dist.sharded(shard) if shard is not None
+                  else contextlib.nullcontext()):
+                with torch.no_grad():
+                    prep = _sampled_prepare(bank, sampled,
+                                            align_different_words, matrix)
+                with _frames(lambda: _sampled_layout(prep, bank.max_len)):
+                    values.append(_train_on(
+                        network, optimizer,
+                        lambda: _sampled_apply(network, loss, prep)))
         return torch.stack(values).mean()
 
     return train_call
@@ -754,22 +1094,31 @@ def make_sampled_eval_step(network, loss, bank, sampler,
                            align_different_words: bool = False,
                            matrix_loss: Optional[bool] = None,
                            steps_per_call: int = 1,
-                           extra_labels: bool = False):
+                           extra_labels: bool = False, mesh=None):
     """Eval twin of :func:`make_sampled_train_step`: ``eval_call(
     generator)`` samples, aligns and evaluates ``steps_per_call`` fresh
     batches and returns their (steps_per_call,) losses as a device
-    tensor."""
+    tensor (global losses on a ``mesh``)."""
     if steps_per_call < 1:
         raise ValueError("steps_per_call must be >= 1")
     matrix = use_matrix_loss(loss, matrix_loss, extra_labels)
+    new_shard = _sampled_sharding(mesh, sampler)
+
+    @torch.no_grad()
+    def one(generator):
+        sampled, shard = _sampled_draw(sampler, generator, extra_labels,
+                                       new_shard)
+        if shard is None:
+            return _sampled_apply(network, loss, _sampled_prepare(
+                bank, sampled, align_different_words, matrix))
+        with mesh_dist.sharded(shard):
+            return mesh_dist.global_sum(_sampled_apply(
+                network, loss, _sampled_prepare(
+                    bank, sampled, align_different_words, matrix)))
 
     @torch.no_grad()
     def eval_call(generator: torch.Generator) -> torch.Tensor:
         network.eval()
-        return torch.stack([
-            _sampled_apply(network, loss, _sampled_prepare(
-                bank, sampler.sample(generator, with_speakers=extra_labels),
-                align_different_words, matrix))
-            for _ in range(steps_per_call)])
+        return torch.stack([one(generator) for _ in range(steps_per_call)])
 
     return eval_call

@@ -39,6 +39,7 @@ import torch
 from abnet3_torch.dataloader import (Batch, BankBatch, FrameBankBatch,
                                      MultimodalDataLoader, SplitBankBatch,
                                      prefetch_iterator)
+from abnet3_torch import dist as mesh_dist
 from abnet3_torch.profiling import stage_trace
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import (jax_param_slots, jax_param_tree,
@@ -147,8 +148,14 @@ class TrainerBuilder:
 
     ``cuda`` (kept from the YAML schema) and ``device`` choose the
     device: the card unless ``cuda=False`` or ``device='cpu'``; the
-    network must already live there. ``mesh`` must stay None (multi-GPU
-    is not ported). ``matrix_loss`` picks the split bank step's mode
+    network must already live there. ``mesh``: a ('data', 'model') mesh
+    (:func:`abnet3_torch.parallel.make_mesh`) or a YAML dict ``{data: N,
+    model: M}``, one process per GPU under ``torchrun``: every rank runs
+    the same loop on the same batches, each step its block of them; the
+    towers shard over 'model' before the optimizer is built; rank 0
+    alone writes the ``.pth``, ``.ckpt``, ``.params`` and the logs, from
+    gathered shards, and the other ranks wait for it. ``matrix_loss``
+    picks the split bank step's mode
     (None: matrix mode whenever the loss has a cell decomposition; False:
     the gather path). ``prefetch`` > 0 builds that many batches ahead on
     a worker thread (:func:`abnet3_torch.dataloader.prefetch_iterator`),
@@ -161,9 +168,6 @@ class TrainerBuilder:
                  seed=0, dataloader=None, log_dir=None,
                  feature_generator=None, checkpoints=False,
                  prefetch=2, mesh=None, matrix_loss=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh: multi-GPU training is not "
-                                      "ported yet")
         self.network = network
         self.loss = loss
         self.num_epochs = num_epochs
@@ -184,7 +188,15 @@ class TrainerBuilder:
         self.prefetch = prefetch
         self.optimizer_type = optimizer_type
         self.matrix_loss = matrix_loss
+        if isinstance(mesh, dict):
+            from abnet3_torch.parallel import make_mesh
+            mesh = make_mesh(n_data=mesh.get("data"),
+                             n_model=mesh.get("model", 1),
+                             device=self.device)
         self.mesh = mesh
+        if mesh is not None:
+            from abnet3_torch.parallel import shard_network
+            shard_network(network, mesh)
 
         if log_dir is None:
             self.log_dir = Path("./runs/%s"
@@ -204,6 +216,9 @@ class TrainerBuilder:
         out = {k: v for k, v in self.__dict__.items()
                if not k.startswith("_") and k not in skip}
         out["device"] = str(self.device)
+        if self.mesh is not None:
+            from abnet3_torch.parallel import mesh_shape
+            out["mesh"] = str(mesh_shape(self.mesh))
         return out
 
     def whoami(self):
@@ -219,6 +234,8 @@ class TrainerBuilder:
         }
 
     def save_whoami(self):
+        if not mesh_dist.is_writer():
+            return
         state = {k: (str(v) if isinstance(v, Path) else v)
                  for k, v in self.whoami().items()}
         with open(self.network.output_path + ".params", "wb") as fh:
@@ -247,8 +264,10 @@ class TrainerBuilder:
         lists on disk (the state of one group of ``multi_transform``)."""
         def leaf(path, key, p):
             v = self.optimizer.state.get(p, {}).get(name)
-            return (np.zeros(tuple(p.shape), np.float32) if v is None
-                    else v.detach().cpu().numpy().copy())
+            if v is None:
+                return np.zeros(mesh_dist.full_shape(p), np.float32)
+            return mesh_dist.full_tensor(v.detach(), like=p).cpu().numpy(
+            ).copy()
         tree = jax_param_tree(self.network, leaf)
         if keep is not None:
             tree = {k: (v if keep(k) else []) for k, v in tree.items()}
@@ -317,7 +336,8 @@ class TrainerBuilder:
                 # (the JAX package ignores this key)
                 "torch_steps": self._torch_steps()}
         meta.update(self._extra_ckpt_meta())
-        save_pytree(self._ckpt_path, tree, meta)
+        if mesh_dist.is_writer():
+            save_pytree(self._ckpt_path, tree, meta)
 
     def _extra_ckpt_meta(self):
         return {}
@@ -375,8 +395,9 @@ class TrainerBuilder:
             if steps is not None:
                 st["step"] = torch.tensor(steps, dtype=torch.float32)
             for name, tree in slots.items():
-                st[name] = torch.from_numpy(
-                    _saved_slot(tree, path, key, name, p.shape)
+                st[name] = torch.from_numpy(np.ascontiguousarray(
+                    mesh_dist.local_part(p, _saved_slot(
+                        tree, path, key, name, mesh_dist.full_shape(p))))
                 ).to(p.device)
             self.optimizer.state[p] = st
 
@@ -389,8 +410,11 @@ class TrainerBuilder:
         for path, key, p in jax_param_slots(self.network):
             for name, tree in slots.items():
                 dst = opt.state[p][name]
-                dst.copy_(torch.from_numpy(_saved_slot(
-                    tree, path, key, name, dst.shape)))
+                shape = tuple(dst.shape[:dst.dim() - p.dim()]) \
+                    + mesh_dist.full_shape(p)
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(
+                    mesh_dist.local_part(p, _saved_slot(
+                        tree, path, key, name, shape)))))
         opt.weights_memory.copy_(torch.from_numpy(
             np.asarray(lbfgs[5], np.float32)))
         c = opt._np
@@ -429,8 +453,11 @@ class TrainerBuilder:
 
         self.network.ensure_init(self.seed)
 
-        train_writer = MetricsWriter(str(self.log_dir / "train_loss"))
-        dev_writer = MetricsWriter(str(self.log_dir / "dev_loss"))
+        if mesh_dist.is_writer():
+            train_writer = MetricsWriter(str(self.log_dir / "train_loss"))
+            dev_writer = MetricsWriter(str(self.log_dir / "dev_loss"))
+        else:
+            train_writer = dev_writer = _NullWriter()
 
         resumed = resume and os.path.exists(self._ckpt_path)
         if resumed:
@@ -468,11 +495,14 @@ class TrainerBuilder:
                 self.patience_dev += 1
                 if self.patience_dev > self.patience:
                     self.save_checkpoint(epoch)
+                    mesh_dist.barrier()
                     print("early stop: dev loss flat for {} epochs"
                           .format(self.patience))
                     print("training finished")
                     break
             self.save_checkpoint(epoch)
+            # the other ranks read what rank 0 wrote only after it did
+            mesh_dist.barrier()
         print("Saving best checkpoint network")
         train_writer.close()
         dev_writer.close()
@@ -529,7 +559,8 @@ class TrainerSiamese(TrainerBuilder):
                 # feeds x lists to a MultimodalSiameseNetwork
                 self._step_fns[key] = parallel.make_frame_train_step(
                     *args, dl.frame_tables(b.mode == "train"),
-                    multimodal=isinstance(dl, MultimodalDataLoader))
+                    multimodal=isinstance(dl, MultimodalDataLoader),
+                    mesh=self.mesh)
             else:
                 tcl = getattr(dl, "tcl", 0.0)
                 # the pure-tcl TemporalCoherenceDataLoader holds a frame
@@ -543,7 +574,8 @@ class TrainerSiamese(TrainerBuilder):
                         dl, "align_different_words", False),
                     matrix_loss=self.matrix_loss,
                     frame_bank=dl.frame_bank if tcl > 0 else None,
-                    tcl=tcl, extra_labels=self._BANK_EXTRA_LABELS)
+                    tcl=tcl, extra_labels=self._BANK_EXTRA_LABELS,
+                    mesh=self.mesh)
         return self._step_fns[key]
 
     @property
@@ -638,7 +670,7 @@ class TrainerSiamese(TrainerBuilder):
         if "frames" not in self._step_fns:
             from abnet3_torch.parallel import make_frame_pair_steps
             self._step_fns["frames"] = make_frame_pair_steps(
-                self.network, self.loss, self.optimizer)
+                self.network, self.loss, self.optimizer, mesh=self.mesh)
         train_step, eval_step = self._step_fns["frames"]
         step = train_step if do_training else eval_step
         args = (b.x1, b.x2, b.y, b.weights)
@@ -701,10 +733,11 @@ class TrainerSiamese(TrainerBuilder):
                                         self.optimizer, bank, sampler,
                                         steps_per_call=k,
                                         matrix_loss=self.matrix_loss,
-                                        extra_labels=extra),
+                                        extra_labels=extra, mesh=self.mesh),
                 make_sampled_eval_step(self.network, self.loss, bank,
                                        sampler, matrix_loss=self.matrix_loss,
-                                       steps_per_call=k, extra_labels=extra))
+                                       steps_per_call=k, extra_labels=extra,
+                                       mesh=self.mesh))
         return self._step_fns[key]
 
     def _optimize_model_sampled(self, do_training):
@@ -931,6 +964,16 @@ class MultimodalTrainer(TrainerSiamese):
         if self.headstart and self.headstart_epochs > -1:
             self.headstart_epochs -= 1
         return dev_loss
+
+
+class _NullWriter:
+    """The loss log of a rank that writes no files."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
 
 
 def _on_stream(iterator, stream):

@@ -14,7 +14,10 @@ Each network describes where its parameters sit (``jax_layout()``, a
 :class:`JaxLayout`). These functions fill the port's modules from such
 dicts and read them back, with no transpose (the port keeps ``w`` as
 (in, out) too). ``.pth`` files, trainer checkpoints and the parity tests
-all go through here.
+all go through here. A tower sharded over a mesh's 'model' axis
+(:func:`abnet3_torch.parallel.mesh.shard_network`) is gathered on the way
+out and cut on the way in: every rank of the group calls these
+functions, and their arrays are the whole ones.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from abnet3_torch import dist as mesh_dist
 
 __all__ = ["JaxLayout", "load_jax_numpy", "to_jax_numpy", "jax_param_slots",
            "jax_param_tree"]
@@ -98,10 +103,12 @@ def load_jax_numpy(network, params: Dict, state: Dict = None) -> None:
 
     def put(dst: torch.Tensor, src, name: str) -> None:
         src = np.array(src, dtype=np.float32)
-        if tuple(src.shape) != tuple(dst.shape):
+        shape = mesh_dist.full_shape(dst)
+        if tuple(src.shape) != shape:
             raise ValueError(f"{name}: shape {src.shape} does not match "
-                             f"the network's {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(src))
+                             f"the network's {shape}")
+        dst.copy_(torch.from_numpy(
+            np.ascontiguousarray(mesh_dist.local_part(dst, src))))
 
     def where(path):
         return "".join(f"{k}/" for k in path)
@@ -135,8 +142,10 @@ def load_jax_numpy(network, params: Dict, state: Dict = None) -> None:
 def to_jax_numpy(network) -> Tuple[Dict, Dict]:
     """The inverse of :func:`load_jax_numpy`: (params, state) as nested
     dicts of float32 numpy arrays in the JAX package's layout."""
-    params = jax_param_tree(
-        network, lambda path, key, p: p.detach().cpu().numpy().copy())
+    def whole(t):
+        return mesh_dist.full_tensor(t).detach().cpu().numpy().copy()
+
+    params = jax_param_tree(network, lambda path, key, p: whole(p))
     state: Dict = {}
     for path, tower, with_state in network.jax_layout().towers:
         if not with_state:
@@ -144,6 +153,6 @@ def to_jax_numpy(network) -> Tuple[Dict, Dict]:
         st = _node(state, path, create=True)
         for i, layer in enumerate(tower.layers):
             if hasattr(layer, "bn_mean"):
-                st[f"bn_{i}"] = {"mean": layer.bn_mean.cpu().numpy().copy(),
-                                 "var": layer.bn_var.cpu().numpy().copy()}
+                st[f"bn_{i}"] = {"mean": whole(layer.bn_mean),
+                                 "var": whole(layer.bn_var)}
     return params, state

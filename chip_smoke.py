@@ -175,17 +175,49 @@ Phases, each printing JSON lines:
     export (rtol 1e-4), weights in (0, 1), the int8 codes card == CPU.
     It prints load_data_s, host and event ms a step, embed_s cold and
     warm, the ABX error and the losses by epoch;
-18. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+18. bf16_path: ``compute_dtype='bfloat16'``: the tower's bf16 product
+    (bf16 inputs, float32 output on the tensor cores) against its plain
+    version on the card at the flagship's three layer shapes (forward
+    rtol 1e-5, atol 1e-5 of the output's scale; gradients bf16-valued
+    and within 1 bf16 ulp of autograd through the plain product's
+    casts), the forward GEMM timed in bf16 and float32; the flagship
+    network in bf16 through ``TrainerSiamese`` (the epoch-0 eval and 2
+    epochs of the split matrix step, the main path's loader and bucket
+    cut to 4 batches a pass, the main path's initial weights):
+    ``dtw_path`` once a step, the towers still bf16, and the same run on
+    the CPU within rtol 1e-5 on the losses and atol 1e-5 on the weights,
+    then one more step's tower weight gradients bf16-valued and within
+    1/128 of the CPU's largest, a comparison that the same network in
+    float32 on the card must fail (the control); its profile (22) must
+    show a bf16 GEMM;
+19. mesh_path: the ('data', 'model') mesh: (a) world size 1 on NCCL,
+    mesh (1, 1): the split step 2 epochs and its gather mode 1 epoch
+    through ``TrainerSiamese``, the int8 embedder with ``{data: 1}``,
+    ``distance_matrix`` of 1,024 tokens cut from the trained network's
+    embeddings and the device scorer, each bit for bit equal to
+    ``mesh=None``; (b) two ranks spawned on the one card over gloo
+    (NCCL refuses two ranks on one device), meshes (2, 1) then (1, 2):
+    the same runs within rtol 1e-4 (losses) and atol 1e-4 (weights) of
+    (a); the int8 encode of a chunk's rows sharded over the ranks equal
+    to the whole chunk's encode bit for bit; the corpus's float32
+    embeddings within rtol 1e-4 of (a)'s and its int8 codes within one
+    code step (a rank's GEMMs over its block may round otherwise than
+    the whole chunk's); the matrix and the ABX error equal to (a)'s;
+    each rank's ``dtw_path``, ``dtw_moves`` and ``dtw_path_stats``
+    launches as predicted, ``dtw_costs`` 0. A correctness check: the
+    ranks share one card and gloo stages through host memory;
+20. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
-19. timing: for each of the four kernels ``device_ms`` (the kernel's own
+21. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-20. profile: ``torch.profiler`` over 10 train steps, over 10 gather-path
+22. profile: ``torch.profiler`` over 10 train steps, over 10 bf16 train
+    steps (``train_step_bf16``), over 10 gather-path
     steps (the device loader's batch building included), over 10
     multitask split steps, over 10 multimodal frame steps, over one
     sampled train call of 8 steps, over one ABX tile of 1,024 rows, over
@@ -727,12 +759,14 @@ def phase_sampler(tokens, speaker_of, n_pairs=8000):
     return pairs, classes, spk
 
 
-def flagship_network(output_path=None, device=None):
+def flagship_network(output_path=None, device=None,
+                     compute_dtype="float32"):
     from abnet3_torch.models.siamese import SiameseNetwork
     return SiameseNetwork(input_dim=280, num_hidden_layers=2, hidden_dim=500,
                           output_dim=100, p_dropout=0.0,
                           activation_layer="sigmoid", type_init="xavier_uni",
-                          output_path=output_path, device=device)
+                          output_path=output_path, device=device,
+                          compute_dtype=compute_dtype)
 
 
 def phase_main_path(features, pairs):
@@ -1833,9 +1867,9 @@ def phase_multitask_path(features, pairs, spk, sampled_loader):
 
 
 def tree_leaves(node):
-    """The arrays of a checkpoint subtree (lists in order, dicts by sorted
-    key)."""
-    if isinstance(node, list):
+    """The arrays of a checkpoint subtree (lists and tuples in order,
+    dicts by sorted key)."""
+    if isinstance(node, (list, tuple)):
         return [x for v in node for x in tree_leaves(v)]
     if isinstance(node, dict):
         return [x for k in sorted(node) for x in tree_leaves(node[k])]
@@ -2944,6 +2978,537 @@ def phase_multimodal_path(features, pairs, wav_paths, n_classes=128,
     return launches, run_learning
 
 
+# ---------------------------------------------------------------------------
+# bf16 towers (ROADMAP A12) and the ('data', 'model') mesh (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+# batches a pass of the bf16 and mesh runs (the main path's loader and
+# bucket, cut from its 20 so that the CPU twin and the two-rank runs fit)
+SHORT_BATCHES = 4
+
+
+def short_loader(features, pairs, device=None):
+    """The main path's loader (bank, split batches of 64, seed 0), cut to
+    ``SHORT_BATCHES`` batches a pass."""
+    from abnet3_torch.dataloader import OriginalDataLoader
+    loader = OriginalDataLoader(None, None, batch_size=64,
+                                num_max_minibatches=SHORT_BATCHES, seed=0,
+                                align_backend="bank", steps_per_call=8,
+                                device=device)
+    loader.features = features
+    loader.pairs = pairs
+    loader.load_data()
+    return loader
+
+
+def short_trainer(features, pairs, weights, out, device=None, mesh=None,
+                  compute_dtype="float32", matrix_loss=None, num_epochs=2):
+    """The flagship's ``TrainerSiamese`` (coscos2, adadelta 0.1) on a
+    short loader, from ``weights``, counting the steps it runs; trained
+    ``num_epochs`` after the epoch-0 eval. Returns (trainer, steps)."""
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.trainer import TrainerSiamese
+    from abnet3_torch.weights import load_jax_numpy
+    net = flagship_network(os.path.join(out, "network"), device=device,
+                           compute_dtype=compute_dtype)
+    load_jax_numpy(net, *weights)
+    trainer = TrainerSiamese(
+        network=net, loss=coscos2(avg=True),
+        dataloader=short_loader(features, pairs, device=device),
+        optimizer_type="adadelta", lr=0.1, num_epochs=num_epochs,
+        patience=30, seed=0, log_dir=os.path.join(out, "logs"),
+        device=device, mesh=mesh, matrix_loss=matrix_loss)
+    steps = {"n": 0}
+    run_step = trainer._run_step
+
+    def counted(b, do_training):
+        steps["n"] += 1
+        return run_step(b, do_training)
+    trainer._run_step = counted
+    trainer.train()
+    trainer._run_step = run_step
+    losses = trainer.train_losses + trainer.dev_losses
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return trainer, steps["n"]
+
+
+def bf16_ulps(a, b):
+    """Largest difference in bf16 ulps of two tensors of bf16 values."""
+    ia = a.bfloat16().view(torch.int16).int()
+    ib = b.bfloat16().view(torch.int16).int()
+    return int((ia - ib).abs().max())
+
+
+def max_diff(a, b):
+    """Largest absolute difference between two nested trees of arrays."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{len(la)} leaves against {len(lb)}")
+    return max((float(np.max(np.abs(np.asarray(x, np.float64)
+                                    - np.asarray(y, np.float64))))
+                for x, y in zip(la, lb) if np.size(x)), default=0.0)
+
+
+def phase_bf16_path(features, pairs):
+    """``compute_dtype='bfloat16'`` on the card (ROADMAP A12):
+
+    (a) the product at the flagship's layer shapes (5,000 rows; 280->500,
+        500->500, 500->100): ``bf16_matmul`` (bf16 inputs, float32 output
+        on the tensor cores) against ``bf16_matmul_plain`` on the same
+        card: the forward within rtol 1e-5 (atol 1e-5 of the output's
+        largest value: summation order only); the gradients bf16-valued
+        and within 1 bf16 ulp of torch's own autograd through the casts
+        of the plain product (``x.to(bf16).float() @ w.to(bf16).float()``,
+        whose cast backwards round the float32 cotangent products to bf16
+        as JAX's do), which shares no code with ``bf16_matmul``'s
+        backward; the forward GEMM timed in bf16 and in float32 (events);
+    (b) the flagship network in bf16 through ``TrainerSiamese``: the
+        epoch-0 eval and 2 epochs of the split matrix step on the main
+        path's loader and bucket (4 batches a pass), from the main path's
+        initial weights (seed 0); ``dtw_path`` launched once a step; its
+        towers still bf16 after the run. Held against the same run on the
+        CPU (plain versions): losses within rtol 1e-5 and weights within
+        atol 1e-5 (measured 8.5e-8 and 7.5e-9 on the H100), and then one
+        more step of each trainer's own step on its top bucket's batch
+        gives tower weight gradients that are bf16-valued and within 1/128
+        of each layer's largest gradient of the CPU's (measured 0.0050 on
+        the H100: the bf16-rounded cotangents between the layers turn the
+        card's other summation orders into whole-ulp flips, 24% of the
+        elements). A control holds the comparison: the same network in
+        float32 on the card must fail it (measured: not bf16-valued, and
+        0.0152), or it could not tell a trainer that dropped the bf16
+        product. (The losses alone cannot: bf16 moves two epochs' losses
+        by 4.1e-7 relative here.)
+
+    Returns (dtw_path launches of the path, a callable of one bf16 train
+    step at the top bucket, for the profile)."""
+    from abnet3_torch.nn import bf16_matmul, bf16_matmul_plain
+    from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_path_cuda,
+                                           dtw_moves_cuda,
+                                           dtw_path_stats_cuda)
+    from abnet3_torch.weights import to_jax_numpy
+    gen = torch.Generator().manual_seed(13)
+    products = []
+
+    def autograd_casts(x, w):
+        return x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+    for n, k, m in ((5000, 280, 500), (5000, 500, 500), (5000, 500, 100)):
+        x = torch.randn(n, k, generator=gen).cuda()
+        w = (0.05 * torch.randn(k, m, generator=gen)).cuda()
+        up = torch.randn(n, m, generator=gen).cuda()
+        outs = []
+        for fn in (bf16_matmul, bf16_matmul_plain, autograd_casts):
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = fn(xg, wg)
+            (y * up).sum().backward()
+            outs.append((y.detach(), xg.grad, wg.grad))
+        (y, gx, gw), (yp, _, _), (_, gxp, gwp) = outs
+        if y.dtype != torch.float32:
+            raise AssertionError(f"bf16 product gave {y.dtype}")
+        err = float((y - yp).abs().max())
+        scale = float(yp.abs().max())
+        if not torch.allclose(y, yp, rtol=1e-5, atol=1e-5 * scale):
+            raise AssertionError(f"bf16 product ({n}, {k}, {m}): {err} "
+                                 f"from the plain version (scale {scale})")
+        ulps = max(bf16_ulps(gx, gxp), bf16_ulps(gw, gwp))
+        if not all(torch.equal(g, g.bfloat16().float()) for g in (gx, gw)):
+            raise AssertionError(f"bf16 gradients ({n}, {k}, {m}) are not "
+                                 "rounded to bf16")
+        if ulps > 1:
+            raise AssertionError(f"bf16 gradients ({n}, {k}, {m}): {ulps} "
+                                 "bf16 ulps from autograd through the casts")
+        with torch.no_grad():
+            ms_bf16 = cuda_time_ms(lambda: bf16_matmul(x, w), reps=50)
+            ms_f32 = cuda_time_ms(lambda: x @ w, reps=50)
+            ms_plain = cuda_time_ms(lambda: bf16_matmul_plain(x, w), reps=50)
+        products.append({"shape": [n, k, m], "max_abs_err": err,
+                         "out_scale": scale, "grad_max_ulps": ulps,
+                         "grad_bit_equal": bool(torch.equal(gx, gxp)
+                                                and torch.equal(gw, gwp)),
+                         "fwd_gemm_ms_bf16": ms_bf16,
+                         "fwd_gemm_ms_float32": ms_f32,
+                         "plain_ms": ms_plain})
+
+    weights = to_jax_numpy(flagship_network_seeded())
+    out = os.path.join(OUT, "bf16")
+    reset_launches()
+    t0 = time.perf_counter()
+    card, steps = short_trainer(features, pairs, weights, out,
+                                compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dtw_path_cuda.launches
+    others = (dtw_moves_cuda.launches, dtw_path_stats_cuda.launches,
+              dtw_costs_cuda.launches)
+    if launches != steps or launches == 0 or any(others):
+        raise AssertionError(f"bf16 path: dtw_path {launches} for {steps} "
+                             f"steps, the others {others}")
+    t0 = time.perf_counter()
+    cpu, _ = short_trainer(features, pairs, weights,
+                           os.path.join(out, "cpu"), device="cpu",
+                           compute_dtype="bfloat16")
+    cpu_s = time.perf_counter() - t0
+    if any(p.dtype != torch.float32 for p in card.network.parameters()):
+        raise AssertionError("bf16 towers must keep float32 weights")
+    dtypes = {t.spec.compute_dtype for _, t in card.network.jax_towers()}
+    if dtypes != {"bfloat16"}:
+        raise AssertionError(f"the bf16 run's towers are {dtypes}")
+    control, _ = short_trainer(features, pairs, weights,
+                               os.path.join(out, "control"))
+
+    def top_batch(trainer):
+        batch = None
+        for b in trainer.dataloader.batch_iterator(train_mode=True):
+            if batch is None or b.bucket > batch.bucket:
+                batch = b
+        return batch
+
+    def epochs_vs_cpu(run):
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+            run.train_losses + run.dev_losses,
+            cpu.train_losses + cpu.dev_losses))
+        return loss_rel, max_diff(to_jax_numpy(run.network),
+                                  to_jax_numpy(cpu.network))
+
+    def tower_grads(run):
+        """The tower weights' gradients of one more step of ``run``'s
+        own train step on its top bucket's batch."""
+        batch = top_batch(run)
+        run._steps_for(batch)[0](*run._args_for(batch))
+        return [layer.w.grad.detach().cpu()
+                for _, t in run.network.jax_towers() for layer in t.layers]
+
+    # the two epochs, then one more step of each (which moves the weights)
+    readings = {"card": epochs_vs_cpu(card), "control": epochs_vs_cpu(control)}
+    cpu_grads = tower_grads(cpu)
+    for name, run in (("card", card), ("control", control)):
+        grads = tower_grads(run)
+        # each layer's largest difference over its largest gradient
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(grads, cpu_grads))
+        share = (sum(int((a == b).sum()) for a, b in zip(grads, cpu_grads))
+                 / sum(g.numel() for g in grads))
+        bf16_valued = all(torch.equal(g, g.bfloat16().float())
+                          for g in grads)
+        readings[name] += (rel, bf16_valued, share)
+
+    def holds(loss_rel, w_err, grad_rel, bf16_valued, _):
+        return (loss_rel <= 1e-5 and w_err <= 1e-5
+                and grad_rel <= 1 / 128 and bf16_valued)
+    if not holds(*readings["card"]):
+        raise AssertionError(f"bf16 card vs CPU: (losses, weights, "
+                             f"gradients, bf16-valued, gradients bit-equal "
+                             f"share) {readings['card']}")
+    if holds(*readings["control"]):
+        raise AssertionError(f"a float32 tower passes the bf16 comparison "
+                             f"{readings['control']}: it cannot tell bf16 "
+                             "from float32")
+
+    batch = top_batch(card)
+    step, _ = card._steps_for(batch)
+
+    def run():
+        return step(*card._args_for(batch))
+    step_ms = cuda_time_ms(run, reps=20, warmup=3)
+    emit({"phase": "bf16_path", "products": products, "steps": steps,
+          "dtw_launches": launches,
+          "train_losses": card.train_losses, "dev_losses": card.dev_losses,
+          "cpu_train_losses": cpu.train_losses,
+          "cpu_dev_losses": cpu.dev_losses,
+          "card_vs_cpu": dict(zip(
+              ("loss_rel", "weights_abs", "grad_rel_to_max",
+               "grad_bf16_valued", "grad_bit_equal_share"),
+              readings["card"])),
+          "control_float32_vs_cpu": dict(zip(
+              ("loss_rel", "weights_abs", "grad_rel_to_max",
+               "grad_bf16_valued", "grad_bit_equal_share"),
+              readings["control"])),
+          "card_s": card_s,
+          "cpu_s": cpu_s, "train_step_ms_bf16": step_ms,
+          "bucket": batch.bucket})
+    return launches, run
+
+
+def flagship_network_seeded():
+    """The flagship network with the main path's initial weights (seed 0,
+    drawn on the CPU)."""
+    net = flagship_network(device="cpu")
+    net.ensure_init(0)
+    return net
+
+
+def mesh_workload(features, pairs, weights, inventory, mesh, out):
+    """What ``mesh_path`` drives on one mesh (or ``mesh=None``), on the
+    card: the flagship's split matrix step 2 epochs and its gather mode
+    (``matrix_loss=False``) 1 epoch through ``TrainerSiamese``, the int8
+    embedder on the corpus with the initial weights, the
+    inventory's ``distance_matrix`` (tiles, device matrix) and the device
+    scorer. Each kernel's launches are counted from 0 for this run."""
+    from abnet3_torch.embedder import EmbedderSiamese
+    from abnet3_torch.eval import abx
+    from abnet3_torch.eval.abx_device import abx_error_device
+    from abnet3_torch.ops import cuda_dtw
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+    kernels = (cuda_dtw.dtw_path_cuda, cuda_dtw.dtw_moves_cuda,
+               cuda_dtw.dtw_path_stats_cuda, cuda_dtw.dtw_costs_cuda)
+    reset_launches()
+    t0 = time.perf_counter()
+    matrix, steps = short_trainer(features, pairs, weights,
+                                  os.path.join(out, "matrix"), mesh=mesh)
+    gather, gather_steps = short_trainer(
+        features, pairs, weights, os.path.join(out, "gather"), mesh=mesh,
+        matrix_loss=False, num_epochs=1)
+    train_s = time.perf_counter() - t0
+    from abnet3_torch.embedder import encode_transfer
+    net = flagship_network()
+    load_jax_numpy(net, *weights)
+    files = [features.features[k] for k in sorted(
+        features.features, key=lambda k: int(k[1:]))]
+    embedded = {}
+    for codec in ("float32", "int8"):
+        emb = EmbedderSiamese(network=net, transfer_dtype=codec,
+                              batch_size=5000, mesh=mesh)
+        emb._load()
+        embedded[codec] = emb._embed_corpus(emb._forward_fn(), files)
+    # the codec alone: this rank's rows of one chunk's float32 embeddings
+    # (computed whole here) through the sharded encode give the codes and
+    # scalars of the whole chunk's encode, bit for bit
+    chunk = torch.from_numpy(np.concatenate(files)[:5000]).cuda()
+    net.eval()
+    with torch.no_grad():
+        whole = net.forward_once(chunk)
+    codec_equal = all(torch.equal(a, b) for a, b in zip(
+        encode_transfer(whole, "int8"), emb._encode(emb._rank_rows(whole))))
+    bank = TokenBank(inventory["tokens"])
+    t0 = time.perf_counter()
+    D, dm = abx.distance_matrix(bank, strategy="tiles", device_out=True,
+                                mesh=mesh)
+    score = abx_error_device(dm, inventory["labels"], inventory["speakers"])
+    abx_s = time.perf_counter() - t0
+    counts = {fn.__name__.replace("_cuda", ""): int(fn.launches)
+              for fn in kernels}
+    return {"train": matrix.train_losses, "dev": matrix.dev_losses,
+            "weights": to_jax_numpy(matrix.network), "steps": steps,
+            "gather_train": gather.train_losses,
+            "gather_dev": gather.dev_losses, "gather_steps": gather_steps,
+            "float32": embedded["float32"], "int8": embedded["int8"],
+            "codec_equal": codec_equal, "D": D, "device_matrix": dm.numpy(),
+            "error": score["error"], "n_triplets": score["n_triplets"],
+            "launches": counts, "train_s": train_s, "abx_s": abx_s}
+
+
+def mesh_rank_main(rank, world, store, out_dir):
+    """One of the two ranks of ``mesh_path`` (b): gloo on the one card,
+    meshes (2, 1) then (1, 2); each rank pickles its results to
+    ``out_dir/rank<r>.pkl``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from abnet3_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    try:
+        with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+            features, pairs, weights, inventory = pickle.load(f)
+        results = {"backend": dist.get_backend()}
+        for shape in ((2, 1), (1, 2)):
+            mesh = make_mesh(*shape)
+            results[shape] = mesh_workload(
+                features, pairs, weights, inventory, mesh,
+                os.path.join(out_dir, "x".join(map(str, shape))))
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def predicted_launches(run, n_data, tiles, block):
+    """Per-rank launches of one ``mesh_workload``: ``dtw_path`` once a
+    matrix step, ``dtw_moves`` once a gather step (each rank runs every
+    step on its block of the pairs), ``dtw_path_stats`` once a row of
+    its block of each upper tile's rows, ``dtw_costs`` never."""
+    return {"dtw_path": run["steps"], "dtw_moves": run["gather_steps"],
+            "dtw_path_stats": tiles * block // n_data, "dtw_costs": 0}
+
+
+def phase_mesh_path(features, pairs, network, n_classes=128, tiles=10,
+                    block=256):
+    """The ('data', 'model') mesh on the card (ROADMAP A11):
+
+    (a) world size 1 on NCCL, mesh (1, 1), a one-rank group that
+        ``make_mesh`` starts: the split step 2 epochs and its gather mode
+        1 epoch through ``TrainerSiamese``, the int8 embedder with
+        ``{data: 1}``, ``distance_matrix`` of 1,024 tokens cut from the
+        embeddings (tiles of 256) and the device scorer, each bit for bit
+        equal to ``mesh=None``;
+    (b) two ranks spawned on the one card over gloo (NCCL refuses two
+        ranks on one device), meshes (2, 1) then (1, 2): the split step
+        within rtol 1e-4 of (a) (weights atol 1e-4: the batch norm's and
+        the loss's sums split over the ranks), the gather mode likewise;
+        the sharded int8 encode of one chunk's float32 rows equal to the
+        whole chunk's bit for bit (the codec's scalars are the chunk's),
+        the corpus's float32 embeddings within rtol 1e-4 of (a)'s and its
+        int8 codes within one code step (cuBLAS picks its kernels by
+        shape, so a rank's block may round otherwise); the distance
+        matrix and the ABX error equal to (a)'s; each rank's launches
+        as predicted.
+
+    A correctness check: the two ranks share the card and the host, and
+    gloo stages the collectives through host memory; its times are no
+    scaling figures. The inventory: ``n_classes`` x 8 tokens (1,024) cut
+    from ``network``'s float32 embeddings of the corpus, whose tile rule
+    gives ``tiles`` upper tiles of ``block`` rows. Returns the
+    launches by kernel over (a) and (b), every rank summed."""
+    import pickle
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from abnet3_torch.embedder import EmbedderSiamese
+    from abnet3_torch.parallel import make_mesh
+    from abnet3_torch.weights import to_jax_numpy
+    emb = EmbedderSiamese(network=network, batch_size=5000)
+    files = [features.features[k] for k in sorted(
+        features.features, key=lambda k: int(k[1:]))]
+    embedded = emb._embed_corpus(emb._forward_fn(), files)
+    inventory_tokens, labels, speakers = eval_inventory(
+        embedded, seed=3, n_classes=n_classes)
+    inventory = {"tokens": inventory_tokens, "labels": labels,
+                 "speakers": speakers}
+    weights = to_jax_numpy(flagship_network_seeded())
+    out = os.path.join(OUT, "mesh")
+    os.makedirs(out, exist_ok=True)
+    total = {"dtw_path": 0, "dtw_moves": 0, "dtw_path_stats": 0,
+             "dtw_costs": 0}
+
+    # (a) world size 1 on NCCL
+    plain = mesh_workload(features, pairs, weights, inventory, None,
+                          os.path.join(out, "none"))
+    if dist.is_initialized():
+        raise AssertionError("mesh=None started a process group")
+    mesh = make_mesh(1, 1)
+    backend_a = dist.get_backend()
+    try:
+        one = mesh_workload(features, pairs, weights, inventory, mesh,
+                            os.path.join(out, "1x1"))
+    finally:
+        dist.destroy_process_group()
+    if backend_a != "nccl":
+        raise AssertionError(f"world size 1 ran on {backend_a}")
+    for key in ("train", "dev", "gather_train", "gather_dev", "error",
+                "n_triplets"):
+        if one[key] != plain[key]:
+            raise AssertionError(f"(1, 1) {key}: {one[key]} != {plain[key]}")
+    for key in ("weights", "float32", "int8", "D", "device_matrix"):
+        if max_diff(one[key], plain[key]) != 0.0:
+            raise AssertionError(f"(1, 1) {key} differs from mesh=None")
+    for run in (plain, one):
+        want = predicted_launches(run, 1, tiles, block)
+        if run["launches"] != want:
+            raise AssertionError(f"world size 1 launches {run['launches']}"
+                                 f", predicted {want}")
+    total = {k: plain["launches"][k] + one["launches"][k] for k in total}
+    emit({"phase": "mesh_path", "part": "a", "backend": backend_a,
+          "mesh": [1, 1], "bit_equal_to_mesh_none": True,
+          "launches": one["launches"], "train_losses": one["train"],
+          "dev_losses": one["dev"], "abx_error": one["error"],
+          "train_s": one["train_s"], "abx_s": one["abx_s"],
+          "train_s_mesh_none": plain["train_s"]})
+
+    # (b) two gloo ranks on the one card
+    with open(os.path.join(out, "inputs.pkl"), "wb") as f:
+        pickle.dump((features, pairs, weights, inventory), f)
+    store = os.path.join(out, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank_main, args=(2, store, out), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    backend_b = ranks[0]["backend"]
+    emit({"phase": "mesh_path", "part": "b", "backend": backend_b,
+          "ranks": 2, "device": "cuda:0 (shared)"})
+    if backend_b != "gloo":
+        raise AssertionError(f"two ranks on one card ran on {backend_b}")
+    for shape in ((2, 1), (1, 2)):
+        got = ranks[0][shape]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            got["train"] + got["dev"] + got["gather_train"]
+            + got["gather_dev"],
+            one["train"] + one["dev"] + one["gather_train"]
+            + one["gather_dev"]))
+        w_err = max_diff(got["weights"], one["weights"])
+        if rel > 1e-4 or w_err > 1e-4:
+            raise AssertionError(f"{shape}: losses {rel} relative, weights "
+                                 f"{w_err} from world size 1")
+        same_ranks = max_diff(ranks[1][shape]["weights"], got["weights"])
+        if same_ranks != 0.0:
+            raise AssertionError(f"{shape}: the ranks' weights differ by "
+                                 f"{same_ranks}")
+        # the codec's scalars are the whole chunk's: on the same float32
+        # rows the sharded encode is the whole encode bit for bit
+        if not got["codec_equal"]:
+            raise AssertionError(f"{shape}: the sharded int8 encode of a "
+                                 "chunk differs from the whole chunk's")
+        # the corpus: a rank's GEMMs over its block of rows (or columns)
+        # may round a float32 embedding otherwise than the whole chunk's
+        # (cuBLAS picks kernels by shape), which can move a value across a
+        # code boundary: at most one code step
+        f32_rel = max(float(np.max(np.abs(a - b) / (np.abs(b) + 1e-6)))
+                      for a, b in zip(got["float32"], one["float32"])
+                      if a.size)
+        # a row's code step: its 5,000-row chunk's range / 255
+        f32 = np.concatenate(one["float32"])
+        step = np.concatenate([
+            np.full(len(c), float(c.max() - c.min()) / 255)
+            for c in np.split(f32, range(5000, len(f32), 5000))])
+        moved = np.abs(np.concatenate(got["int8"])
+                       - np.concatenate(one["int8"])) / step[:, None]
+        steps = float(moved.max())
+        equal_share = float(np.mean(moved < 0.5))
+        if f32_rel > 1e-4 or steps > 1.0 + 1e-3:
+            raise AssertionError(f"{shape}: float32 embeddings {f32_rel} "
+                                 f"relative, int8 {steps} code steps "
+                                 "from world size 1")
+        if (max_diff(got["D"], one["D"]) != 0.0
+                or max_diff(got["device_matrix"], one["device_matrix"])
+                != 0.0 or got["error"] != one["error"]
+                or got["n_triplets"] != one["n_triplets"]):
+            raise AssertionError(f"{shape}: the ABX matrix or score "
+                                 "differs from world size 1")
+        per_rank = []
+        for r in range(2):
+            run = ranks[r][shape]
+            want = predicted_launches(run, shape[0], tiles, block)
+            if run["launches"] != want:
+                raise AssertionError(f"{shape} rank {r}: launches "
+                                     f"{run['launches']}, predicted {want}")
+            per_rank.append(run["launches"])
+            for k in total:
+                total[k] += run["launches"][k]
+        emit({"phase": "mesh_path", "part": "b", "mesh": list(shape),
+              "losses_rel_to_world_size_1": rel,
+              "weights_abs_to_world_size_1": w_err,
+              "int8_codec_bit_equal": True,
+              "float32_rel_to_world_size_1": f32_rel,
+              "int8_max_code_steps_to_world_size_1": steps,
+              "int8_equal_share_to_world_size_1": equal_share,
+              "abx_equal": True,
+              "launches_per_rank": per_rank,
+              "train_s_rank0": got["train_s"], "abx_s_rank0": got["abx_s"]})
+    emit({"phase": "mesh_path", "spawn_s": spawn_s, "launches": total})
+    return total
+
+
 def phase_gridsearch(wavdir, classes, spk, device=None):
     """``abnet3_torch.gridsearch.GridSearch`` on a small flagship YAML over
     the same wavs (features on the card, 2,000 pairs, one epoch, embed,
@@ -3195,17 +3760,20 @@ def kernel_group(name):
         return "dtw_costs"
     if "dtw_path" in low:
         return "dtw_path"
-    if "gemm" in low or "cutlass" in low or "xmma" in low:
+    if ("gemm" in low or "cutlass" in low or "xmma" in low
+            or "nvjet" in low):
         return "matmul"
     if "memcpy" in low or "memset" in low:
         return "copy"
     return "other"
 
 
-def phase_profile(of, run, reps, per_row=None, per="row"):
+def phase_profile(of, run, reps, per_row=None, per="row", require=None):
     """Where the time of ``reps`` calls of ``run`` goes on the card:
     device time by kernel group and the device's busy share of the
-    profiled window (the profiler's own cost is in that window)."""
+    profiled window (the profiler's own cost is in that window).
+    ``require``: (what, predicate of a kernel's name) that some kernel of
+    the window must meet."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     # the profiler now and then drops the records of a whole window:
@@ -3239,6 +3807,8 @@ def phase_profile(of, run, reps, per_row=None, per="row"):
     groups = {}
     for name, t in by_name.items():
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + t
+    if require is not None and not any(map(require[1], by_name)):
+        raise AssertionError(f"profile {of}: no {require[0]} kernel ran")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     line = {"phase": "profile", "of": of, "reps": reps,
             "wall_ms_per_rep": wall_us / reps / 1e3,
@@ -3318,23 +3888,30 @@ def main():
         trainer.network, loader)
     multimodal_mm, multimodal_run = phase_multimodal_path(
         loader.features, pairs, wav_paths)
-    # no path runs the cost kernel: each path phase reads its count
+    bf16_launches, bf16_run = phase_bf16_path(features, pairs)
+    mesh = phase_mesh_path(features, pairs, trainer.network)
+    # no path runs the cost kernel: each path phase reads its count (the
+    # bf16 path requires its own 0)
     costs_launches = (costs_main + costs_gather + costs_eval
                       + sum(by_path["dtw_costs"].values())
                       + sampled["dtw_costs"] + multitask["dtw_costs"]
-                      + multimodal_mm["dtw_costs"])
+                      + multimodal_mm["dtw_costs"] + mesh["dtw_costs"])
     path_by_path = {"main_path": launches, **by_path["dtw_path"],
                     "sampled_path": sampled["dtw_path"],
                     "multitask_path": multitask["dtw_path"],
                     "optimizers": opt_launches,
                     "embed_path_learning": learn_launches,
-                    "multimodal_path": multimodal_mm["dtw_path"]}
+                    "multimodal_path": multimodal_mm["dtw_path"],
+                    "bf16_path": bf16_launches,
+                    "mesh_path": mesh["dtw_path"]}
     stats_by_path = {"eval_path": stats_launches, "embed_path": embed_stats,
-                     "multimodal_path": multimodal_mm["dtw_path_stats"]}
+                     "multimodal_path": multimodal_mm["dtw_path_stats"],
+                     "mesh_path": mesh["dtw_path_stats"]}
     moves_by_path = {"gather_path": moves_launches, **by_path["dtw_moves"],
                      "sampled_gather": sampled["dtw_moves"],
                      "multitask_path": multitask["dtw_moves"],
-                     "multimodal_path": multimodal_mm["dtw_moves"]}
+                     "multimodal_path": multimodal_mm["dtw_moves"],
+                     "mesh_path": mesh["dtw_moves"]}
     if costs_launches != 0:
         raise AssertionError(f"the cost kernel ran {costs_launches} times "
                              "on the paths, which do not use it")
@@ -3343,6 +3920,9 @@ def main():
     fwd_rows, _ = phase_timing_gather(g_trainer, g_loader)
     stats_row = phase_timing_stats(bank)
     phase_profile("train_step", run_step, reps=10)
+    phase_profile("train_step_bf16", bf16_run, reps=10,
+                  require=("bf16 GEMM", lambda name: "bf16" in name.lower()
+                           and kernel_group(name) == "matmul"))
     phase_profile("multitask_step", multitask_run, reps=10)
     phase_profile("multimodal_step", multimodal_run, reps=10)
     phase_profile("gather_step", gather_steps_run(g_trainer, g_loader),

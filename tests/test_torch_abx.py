@@ -19,6 +19,7 @@ from abnet3_tpu.ops.pallas_dtw import dtw_path_stats_rows_pallas
 from abnet3_torch.eval import abx as tabx
 from abnet3_torch.ops import dtw as tdtw
 from abnet3_torch.ops.bank import TokenBank as TorchBank
+from torch_parity import cpu_mesh_1x1
 
 U16_STEP = 1.0 / 65535.0
 SHAPES = [(6, 24, 24), (5, 17, 31), (4, 40, 12)]
@@ -207,14 +208,22 @@ def test_distance_matrix_float16_and_max_frames():
                                 {"device_out": True},
                                 {"device_rows_per_block": 64}])
 def test_distance_matrix_unported_options_raise(kw, tmp_path):
-    """``mesh`` is the one option still unported (it raises); the
-    checkpoint and the device-resident outputs, ported since, run on a
-    tiny bank and give the host matrix (tests/test_torch_abx_device.py
-    holds them against the JAX package)."""
+    """Every option is ported: the checkpoint, the device-resident
+    outputs and a (1, 1) ``mesh`` run on a tiny bank and give the host
+    matrix (tests/test_torch_abx_device.py holds the outputs against the
+    JAX package, tests/test_torch_mesh.py the meshes of several
+    ranks)."""
     bank = TorchBank(_token_feats(0, n=4), device="cpu")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="A11"):
-            tabx.distance_matrix(bank, **kw)
+        plain = tabx.distance_matrix(bank, strategy="tiles")
+        with cpu_mesh_1x1() as mesh:
+            D, dm = tabx.distance_matrix(bank, strategy="tiles", mesh=mesh,
+                                         device_out=True)
+            np.testing.assert_array_equal(D, plain)
+            assert dm.mesh is mesh
+            np.testing.assert_array_equal(
+                dm.numpy(), tabx.distance_matrix(
+                    bank, strategy="tiles", device_out=True)[1].numpy())
         return
     if "checkpoint_path" in kw:
         kw = {"checkpoint_path": str(tmp_path / kw["checkpoint_path"])}
@@ -328,7 +337,7 @@ def test_evaluate_item_file_matches_jax(tmp_path):
 
 def test_evaluate_device_scorer_is_unported(tmp_path):
     """The device scorer is ported: ``score_backend='device'`` gives the
-    host backend's result exactly, and ``mesh`` still raises."""
+    host backend's result exactly, on a YAML ``mesh`` dict too."""
     path, items, toks = _write_corpus(tmp_path, seed=3)
     classes = tmp_path / "t.classes"
     classes.write_text("".join(
@@ -339,8 +348,12 @@ def test_evaluate_device_scorer_is_unported(tmp_path):
     host = tabx.evaluate(path, str(classes), score_backend="host", **kw)
     assert tabx.evaluate(path, str(classes), score_backend="device",
                          **kw) == host
-    with pytest.raises(NotImplementedError, match="A11"):
-        tabx.evaluate(path, str(classes), mesh=object(), **kw)
+    import torch.distributed as dist
+    try:
+        assert tabx.evaluate(path, str(classes), score_backend="device",
+                             mesh={"data": 1}, **kw) == host
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cli_runs_on_cpu(tmp_path, capsys):

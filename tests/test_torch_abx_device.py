@@ -20,6 +20,7 @@ from abnet3_tpu.ops.bank import TokenBank as JaxBank
 from abnet3_torch.eval import abx as tabx
 from abnet3_torch.eval import abx_device as tdev
 from abnet3_torch.ops.bank import TokenBank as TorchBank
+from torch_parity import cpu_mesh_1x1
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -237,8 +238,11 @@ def test_scorer_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tdev.abx_error_device(D, ["a", "a", "b", "b"],
                               ["s0", "s1", "s0", "s1"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        tdev.upload_matrix(D, mesh=object(), device="cpu")
+    with cpu_mesh_1x1() as mesh:
+        dm = tdev.upload_matrix(D + 1.0, mesh=mesh, device="cpu")
+        np.testing.assert_array_equal(dm.numpy(), D + 1.0)
+        with pytest.raises(ValueError, match="exclusive"):
+            tdev.upload_matrix(D, mesh=mesh, rows_per_block=2, device="cpu")
 
 
 def _feats(seed, n, d=8, t_lo=5, t_hi=20, posteriors=False):
@@ -347,8 +351,10 @@ def test_device_out_guards():
                              host_out=False, checkpoint_path="x")
     with pytest.raises(ValueError, match="tiles"):
         tabx.distance_matrix(bank, strategy="pairs", checkpoint_path="x")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tabx.distance_matrix(bank, mesh=object())
+    with cpu_mesh_1x1() as mesh:
+        with pytest.raises(ValueError, match="mesh"):
+            tabx.distance_matrix(bank, strategy="tiles", device_out=True,
+                                 host_out=False, mesh=mesh)
 
 
 class _Interrupt(Exception):

@@ -915,3 +915,76 @@ def test_multimodal_export_on_the_card_matches_the_cpu(cuda_device):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
     for w, n in zip(out["card"][1], lengths):
         assert w.shape == (n, 1) and ((w > 0) & (w < 1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5000, 280, 500), (64, 500, 100)])
+def test_bf16_matmul_on_the_card_matches_plain(cuda_device, shape):
+    """The tower's bf16 product on the tensor cores (bf16 inputs, float32
+    output) against its plain version on the same card: the forward
+    within rtol 1e-5 (atol 1e-5; summation order only), the gradients
+    (float32 products rounded to bf16, computed alike) within 1 bf16
+    ulp."""
+    from abnet3_torch.nn import bf16_matmul, bf16_matmul_plain
+    n, k, m = shape
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(n, k, generator=g).to(cuda_device)
+    w = (0.05 * torch.randn(k, m, generator=g)).to(cuda_device)
+    up = torch.randn(n, m, generator=g).to(cuda_device)
+    outs = []
+    for fn in (bf16_matmul, bf16_matmul_plain):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xg, wg)
+        (y * up).sum().backward()
+        outs.append((y.detach(), xg.grad, wg.grad))
+    assert outs[0][0].dtype == torch.float32
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        ulps = (a.bfloat16().view(torch.int16).int()
+                - b.bfloat16().view(torch.int16).int()).abs()
+        assert int(ulps.max()) <= 1
+
+
+@pytest.mark.cuda
+def test_world_size_one_nccl_step_equals_mesh_free(cuda_device):
+    """A (1, 1) mesh on NCCL (a one-rank group that make_mesh starts):
+    three split steps equal the mesh-free steps bit for bit."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.models.siamese import SiameseNetwork
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.parallel import make_mesh, make_split_pair_train_step
+    from abnet3_torch.trainer import build_optimizer
+    rng = np.random.RandomState(0)
+    feats = {i: rng.randn(rng.randint(4, 30), 10).astype(np.float32)
+             for i in range(40)}
+    ids = torch.arange(22, device=cuda_device)
+    ws = torch.ones(6, device=cuda_device)
+    wd = torch.ones(5, device=cuda_device)
+    batch = (ids[:6], ids[6:12], ws, ids[12:17], ids[17:22], wd)
+
+    def run(mesh):
+        net = SiameseNetwork(input_dim=10, num_hidden_layers=1,
+                             hidden_dim=16, output_dim=8, p_dropout=0.2,
+                             batch_norm=True, activation_layer="sigmoid",
+                             device=cuda_device)
+        net.ensure_init(3)
+        opt = build_optimizer("adadelta", net.parameters(), 0.1)
+        step, _ = make_split_pair_train_step(
+            net, coscos2(), opt, TokenBank(feats, device=cuda_device),
+            mesh=mesh)
+        losses = torch.stack([step(*batch) for _ in range(3)])
+        return losses, [p.detach().clone() for p in net.parameters()]
+
+    plain = run(None)
+    try:
+        mesh = make_mesh(1, 1, device=cuda_device)
+        assert dist.get_backend() == "nccl"
+        meshed = run(mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert torch.equal(plain[0], meshed[0])
+    assert all(torch.equal(a, b) for a, b in zip(plain[1], meshed[1]))

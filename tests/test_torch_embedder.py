@@ -109,10 +109,12 @@ def test_unported_options_raise(kw, tmp_path):
     """``transfer_dtype`` and ``streaming`` are ported: the file is JAX's
     full-load float32 file within the codec's bound (int8: 8e-3, as
     tests/test_embedder.py:219) or within float32 parity (streaming).
-    ``mesh`` still raises, naming its ROADMAP item."""
+    ``mesh`` is ported: a dict larger than the world size raises, naming
+    the torchrun command (tests/test_torch_mesh.py runs several
+    ranks)."""
     if "mesh" in kw:
         net = TorchSiamese(device="cpu", **NET)
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             TorchEmbedder(network=net, device="cpu", **kw)
         return
     path = _corpus(tmp_path, [70, 0, 40], seed=2)

@@ -802,3 +802,39 @@ def test_worker_picks_its_card(monkeypatch):
         tgrid._run_experiment_worker((k, "x.yaml", {}, None, False, False,
                                       True, True))
     assert picked == [0, 1]
+
+
+def test_torchrun_runs_a_grid_on_two_ranks(experiment, tmp_path):
+    """The documented mesh command, ``torchrun --nproc_per_node 2 -m
+    abnet3_torch.gridsearch exp.yaml`` with ``mesh: {data: 2}`` (gloo
+    ranks here, started from the environment by ``init_from_env``), over
+    a grid_params block without a date, the features ``if_none`` and the
+    pairs sampled ``always`` (rank 0 tests and writes, the other rank
+    waits): both ranks finish every experiment in rank 0's one date
+    directory."""
+    import subprocess
+    import sys
+    _, exp_path, text = experiment
+    cfg = yaml.safe_load(text)
+    cfg["default_params"]["features"]["arguments"]["run"] = "if_none"
+    cfg["default_params"]["sampler"]["arguments"]["run"] = "always"
+    for stage in ("trainer", "embedder"):
+        cfg["default_params"][stage]["arguments"]["mesh"] = {"data": 2}
+    cfg["grid_params"] = {"trainer": {"arguments": {"lr": [0.1, 0.01]}}}
+    p = _write(tmp_path, "torchrun.yaml", yaml.safe_dump(cfg))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "abnet3_torch.gridsearch", p],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-6000:]
+    (date,) = os.listdir(exp_path)
+    for lr in ("0.1", "0.01"):
+        d = os.path.join(exp_path, date, "lr", lr)
+        for f in ("exp.yml", "network.pth", "embeddings.h5f"):
+            assert os.path.exists(os.path.join(d, f)), (lr, f)
+        assert read_h5features(os.path.join(d, "embeddings.h5f")) \
+            .features()[0].shape == (80, 5)

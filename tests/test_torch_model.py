@@ -236,5 +236,9 @@ def test_unported_optimizers_raise(opt):
 
 
 def test_bfloat16_towers_raise():
-    with pytest.raises(NotImplementedError):
-        TNet(device="cpu", compute_dtype="bfloat16", **_kw())
+    """bf16 towers are ported (tests/test_torch_bf16.py holds them
+    against the JAX package); another compute dtype raises."""
+    net = TNet(device="cpu", compute_dtype="bfloat16", **_kw())
+    assert net.tower.spec.compute_dtype == "bfloat16"
+    with pytest.raises(AssertionError):
+        TNet(device="cpu", compute_dtype="float16", **_kw())

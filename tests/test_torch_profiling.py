@@ -34,3 +34,23 @@ def test_stage_trace_captures_each_stage(monkeypatch, tmp_path):
             trace = json.load(fh)
         assert any(e.get("name") == "features-spectral"
                    for e in trace["traceEvents"])
+
+
+def test_stage_trace_names_the_rank(monkeypatch, tmp_path):
+    """A rank of a process group of several puts ``rank<r>`` in its
+    capture directory's name, so ranks do not overwrite each other's
+    traces; a lone process does not."""
+    import types
+
+    from abnet3_torch import profiling
+    monkeypatch.setenv("ABNET3_PROFILE", str(tmp_path))
+    for world in (2, 1):
+        monkeypatch.setattr(profiling, "dist", types.SimpleNamespace(
+            is_available=lambda: True, is_initialized=lambda: True,
+            get_world_size=lambda: world, get_rank=lambda: 1))
+        with stage_trace("train-epoch-0"):
+            torch.ones(4).sum()
+    dirs = sorted(os.listdir(tmp_path))
+    assert len(dirs) == 2
+    assert sum(d.startswith("train-epoch-0-rank1-") for d in dirs) == 1
+    assert sum("-rank" not in d for d in dirs) == 1

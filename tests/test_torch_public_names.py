@@ -35,9 +35,6 @@ MISSING_MODULES = {
 }
 # public names the port's twin module lacks, and the item that holds them
 MISSING_NAMES = {
-    "abnet3_tpu.parallel.mesh": {"make_mesh": "A11",
-                                 "param_shardings": "A11",
-                                 "shard_array": "A11"},
     # pytree views that carry device tables across a jit boundary as
     # arguments; torch has none, so the port passes the TokenBank and
     # the DevicePairSampler themselves

@@ -1,6 +1,7 @@
 """Shared helpers of the ``test_torch_*`` parity tests: the same numpy
 inputs and weights go to the JAX package and to its PyTorch port."""
 
+import contextlib
 import os
 
 import jax
@@ -8,6 +9,22 @@ import numpy as np
 import torch
 
 from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
+
+
+@contextlib.contextmanager
+def cpu_mesh_1x1():
+    """A (1, 1) mesh of the port on the CPU in this process (a one-rank
+    gloo group that ``make_mesh`` starts); the group is destroyed on
+    exit, so no other test sees it."""
+    import torch.distributed as dist
+
+    from abnet3_torch.parallel import make_mesh
+    assert not dist.is_initialized()
+    try:
+        yield make_mesh(1, 1, device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def to_numpy(tree):
