@@ -671,7 +671,7 @@ class OriginalDataLoader(DataLoader):
             feat2 = token_feats[f2, s2, e2]
             try:
                 path1, path2 = get_dtw_alignment(feat1, feat2)
-            except Exception:
+            except ValueError:  # a token of no frames: the pair is skipped
                 continue
             self.statistics_training["SameType"] += 1
             speakers(f1, f2, "SameType", len(path1))

@@ -3,8 +3,9 @@ access, device choice.
 
 A copy of ``abnet3_tpu/utils.py``'s host helpers, with the same file
 formats and semantics (the sampling helpers draw from the
-global ``np.random`` exactly as there; the host DTW of
-:func:`get_dtw_alignment` breaks ties as there), plus
+global ``np.random`` exactly as there; :func:`read_dataset` and the
+host DTW of :func:`get_dtw_alignment` go through the port's native
+library, ``abnet3_torch.native``, as there), plus
 :func:`resolve_device`, which every entry point of the port uses to pick
 its device, and :func:`full_float32`.
 """
@@ -18,6 +19,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from abnet3_torch import native
 
 __all__ = ["read_spkid_file", "read_spk_list", "read_dataset",
            "read_dataset_python", "group_pairs", "read_pairs",
@@ -90,8 +93,23 @@ def read_spk_list(spk_file: str) -> List[str]:
 
 def read_dataset(dataset_file: str) -> List[Tuple]:
     """Parse a 7-column pairs file: ``f1 s1 e1 f2 s2 e2 same|diff``
-    (reference utils.py:156-173): ``strip().split(" ")`` per line, blank
-    lines skipped."""
+    (reference utils.py:156-173) with the native C++ parser
+    (``abnet3_torch.native.parse_pairs``), as the JAX package does: the
+    tuples of :func:`read_dataset_python`, and on a malformed line
+    ``ValueError("malformed pairs line N in PATH")``."""
+    names, f1, s1, e1, f2, s2, e2, same = native.parse_pairs(dataset_file)
+    return [(names[a], b, c, names[d], e, f, "same" if g > 0 else "diff")
+            for a, b, c, d, e, f, g in zip(
+                f1.tolist(), s1.tolist(), e1.tolist(), f2.tolist(),
+                s2.tolist(), e2.tolist(), same.tolist())]
+
+
+def read_dataset_python(dataset_file: str) -> List[Tuple]:
+    """The Python pair-file parser: the reference's exact
+    ``strip().split(" ")`` + 7-column contract (reference
+    utils.py:156-173), blank lines skipped. The native parser mirrors
+    these token semantics (``tests/test_torch_native.py`` holds the two
+    together)."""
     pairs = []
     with open(dataset_file, "r") as fh:
         for line in fh:
@@ -107,11 +125,6 @@ def read_dataset(dataset_file: str) -> List[Tuple]:
             pairs.append((f1, float(s1), float(e1),
                           f2, float(s2), float(e2), pair_type))
     return pairs
-
-
-# the JAX package's name for its Python parser (its optional native one
-# is not part of the port)
-read_dataset_python = read_dataset
 
 
 def group_pairs(pairs: Sequence[Tuple]) -> Dict[str, List[Tuple]]:
@@ -235,8 +248,9 @@ def pow2_bucket(n: int, minimum: int = 8) -> int:
     return b
 
 
-# host DTW of the host loader backend (the JAX package's numpy path; its
-# optional native library is not part of the port)
+# plain numpy versions of the host DTW: the host loader backend aligns
+# through the native library (get_dtw_alignment); the tests hold these
+# against both packages
 
 def cosine_distance(x: np.ndarray, y: np.ndarray) -> np.ndarray:
     """Angular cosine distance matrix arccos(cos_sim)/pi in [0, 1].
@@ -340,10 +354,11 @@ def dtw_numpy_fast(dist: np.ndarray) -> Tuple[float, np.ndarray, np.ndarray]:
 def get_dtw_alignment(feat1: np.ndarray,
                       feat2: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Host DTW alignment of two token feature matrices (reference
-    utils.py:147-153): the index paths of :func:`dtw_numpy_fast` over
-    their :func:`cosine_distance` matrix."""
-    _, path1, path2 = dtw_numpy_fast(cosine_distance(feat1, feat2))
-    return path1, path2
+    utils.py:147-153), as the JAX package's host path: the native
+    library's fused cosine distance (float64 products) and DTW
+    (``abnet3_torch.native.dtw_align``). Returns the int64 index paths.
+    Raises ``RuntimeError`` when the library cannot be built."""
+    return native.dtw_align(feat1, feat2)
 
 
 def progress(max_number: int, every: float = 0.1, title: str = ""):

@@ -10,7 +10,8 @@ Phases, each printing JSON lines:
 2. build: compiles the three kernel sources (``abnet3_torch/csrc/*.cu``;
    all three share the warp core ``dtw_strip.cuh``) with nvcc for
    sm_90a, one nvcc per source, all at once, and prints the registers
-   and spills ptxas reports for each kernel;
+   and spills ptxas reports for each kernel; the native host library
+   (``abnet3_torch/native/abnet3_native.cpp``, g++) builds beside them;
 3. kernel: the CUDA DTW path-mask kernel against its plain PyTorch version
    on the card, at the flagship shapes, on tie-heavy integer inputs,
    non-square shapes, several pairs a block, T2 not a multiple of 4,
@@ -81,7 +82,19 @@ Phases, each printing JSON lines:
     losses, each kernel's launches exactly as predicted (the cost
     kernel's 0), and one train step on the card equal to the CPU's
     within rtol 1e-4;
-12. sampled_path: ``OnDeviceSamplerDataLoader`` over the corpus's
+12. native_host: the port's native host library on the card machine's
+    host (the build's seconds, ``g++ --version``, the CPU model,
+    ``nproc``): on the corpus's first 256 same train pairs (280 dims),
+    ``native.dtw(native.cosine_distance(x, y))`` equal to
+    ``dtw_numpy_fast`` on the same float64 matrix (paths exactly, cost
+    within 1e-9) and ``native.dtw_align`` equal to that path; ms a pair
+    of the native alignment and of the numpy route (float32 cosine
+    distance, then ``dtw_numpy_fast``); a 500,000-line pair file (the
+    sampler's 8,000 pairs repeated) read by ``read_dataset`` (native)
+    equal to ``read_dataset_python``, both timed; the host backend's
+    batch of loaders_path timed through the native alignment and
+    through the numpy route in turns;
+13. sampled_path: ``OnDeviceSamplerDataLoader`` over the corpus's
     ``.classes`` and spkid files (the flagship's sampler arguments,
     batch 64, ``steps_per_call`` 8, ``num_max_minibatches`` 16): every
     pair drawn on the card inside the sampled calls, the flagship network
@@ -95,7 +108,7 @@ Phases, each printing JSON lines:
     weights (rtol 1e-4); 200 batches drawn on the card pass the
     chi-square test per configuration, and one seed draws one batch. It
     prints ms a step by events within a call of 8 and host ms a step;
-13. multitask_path: the multitask twin of the flagship
+14. multitask_path: the multitask twin of the flagship
     (``SiameseMultitaskNetwork``: a 280->500->500 trunk and two
     500->500->100 heads, ``weighted_loss_multi(0.5, coscos2, coscos2)``,
     adadelta 0.1) through ``TrainerSiameseMultitask``: (a)
@@ -110,7 +123,7 @@ Phases, each printing JSON lines:
     1e-5); no host sync inside a sampled call; each head's embedding
     equal to ``forward_once``'s (atol 1e-5). It prints host and event ms
     a step of each run;
-14. optimizers: ``adagrad``, ``RMSprop`` and ``LBFGS`` with optax's
+15. optimizers: ``adagrad``, ``RMSprop`` and ``LBFGS`` with optax's
     semantics (``abnet3_torch/optim.py``), 3 steps each of the flagship
     split bank matrix step at full width: finite losses, the first step's
     loss equal to the CPU's (rtol 1e-4) and the parameters after it
@@ -118,7 +131,7 @@ Phases, each printing JSON lines:
     linesearch evaluation), a ``.ckpt`` that reloads into an equal
     optimizer state; host ms a step and LBFGS's linesearch evaluations a
     step;
-15. eval_path: the trained network embeds the corpus through
+16. eval_path: the trained network embeds the corpus through
     ``EmbedderSiamese``'s packed chunks (batch 5,000, 120,000 frames); an
     inventory of 4,096 tokens (512 classes x 8, 10 speakers) cut from
     the embeddings goes through ``distance_matrix(device_out=True)``
@@ -136,7 +149,7 @@ Phases, each printing JSON lines:
     with the card has no h5py, so ``generate()``/``embed()``/
     ``evaluate()``'s file layer is held against the JAX package by the
     CPU tests;
-16. embed_path: the rest of the embedder on the same corpus and trained
+17. embed_path: the rest of the embedder on the same corpus and trained
     network (batch 5,000): (a) the corpus as an in-memory stream with a
     0-frame file first and one in the middle through
     ``_embed_streaming``, every file equal to ``_embed_corpus``'s (float32),
@@ -157,7 +170,7 @@ Phases, each printing JSON lines:
     tests/test_quality.py (``learning_check``): the train loss falls and
     the trained ABX proxy is under 0.7x the raw features', ``dtw_path``
     launched once a step;
-17. multimodal_path: the multimodal family at the flagship's width: a
+18. multimodal_path: the multimodal family at the flagship's width: a
     second modality from the same wavs on the card (MFCC with deltas and
     delta-deltas, CMVN, 7-frame stacking: 273 dims) beside the fbanks;
     ``MultimodalDataLoader`` (device backend, batch 500, 20 batches a
@@ -175,7 +188,7 @@ Phases, each printing JSON lines:
     export (rtol 1e-4), weights in (0, 1), the int8 codes card == CPU.
     It prints load_data_s, host and event ms a step, embed_s cold and
     warm, the ABX error and the losses by epoch;
-18. bf16_path: ``compute_dtype='bfloat16'``: the tower's bf16 product
+19. bf16_path: ``compute_dtype='bfloat16'``: the tower's bf16 product
     (bf16 inputs, float32 output on the tensor cores) against its plain
     version on the card at the flagship's three layer shapes (forward
     rtol 1e-5, atol 1e-5 of the output's scale; gradients bf16-valued
@@ -188,9 +201,9 @@ Phases, each printing JSON lines:
     the CPU within rtol 1e-5 on the losses and atol 1e-5 on the weights,
     then one more step's tower weight gradients bf16-valued and within
     1/128 of the CPU's largest, a comparison that the same network in
-    float32 on the card must fail (the control); its profile (22) must
+    float32 on the card must fail (the control); its profile (23) must
     show a bf16 GEMM;
-19. mesh_path: the ('data', 'model') mesh: (a) world size 1 on NCCL,
+20. mesh_path: the ('data', 'model') mesh: (a) world size 1 on NCCL,
     mesh (1, 1): the split step 2 epochs and its gather mode 1 epoch
     through ``TrainerSiamese``, the int8 embedder with ``{data: 1}``,
     ``distance_matrix`` of 1,024 tokens cut from the trained network's
@@ -206,17 +219,17 @@ Phases, each printing JSON lines:
     each rank's ``dtw_path``, ``dtw_moves`` and ``dtw_path_stats``
     launches as predicted, ``dtw_costs`` 0. A correctness check: the
     ranks share one card and gloo stages through host memory;
-20. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
+21. gridsearch: ``abnet3_torch.gridsearch.GridSearch`` on a small YAML
     over the same wavs, where h5py and pyyaml are installed; otherwise a
     line naming the one missing;
-21. timing: for each of the four kernels ``device_ms`` (the kernel's own
+22. timing: for each of the four kernels ``device_ms`` (the kernel's own
     duration under ``torch.profiler``), L2-warm and L2-cold (a rotation
     over copies of the input larger than the L2), beside ``wrapper_ms``
     (CUDA events around calls of the Python wrapper, which for a kernel
     of a few microseconds reads the host); their plain versions,
     ``walk_moves``, one full train step of each training path and one
     whole ABX tile row by CUDA events;
-22. profile: ``torch.profiler`` over 10 train steps, over 10 bf16 train
+23. profile: ``torch.profiler`` over 10 train steps, over 10 bf16 train
     steps (``train_step_bf16``), over 10 gather-path
     steps (the device loader's batch building included), over 10
     multitask split steps, over 10 multimodal frame steps, over one
@@ -295,15 +308,24 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the kernels (one nvcc each) and the native host library
+    (one g++) at once; returns the host library's build info."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from abnet3_torch import native
     from abnet3_torch.ops import cuda_dtw
     t0 = time.perf_counter()
-    info = cuda_dtw.build(verbose=True)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build)
+        info = cuda_dtw.build(verbose=True)
+        host_info = host.result()
     seconds = time.perf_counter() - t0
     for name, one in info.items():
         emit({"phase": "build", "source": name, "seconds": one["seconds"],
               "compiled": one["compiled"], "kernels": ptxas_report(
                   one["log"])})
     emit({"phase": "build", "all_seconds": seconds})
+    return host_info
 
 
 def ptxas_report(log):
@@ -1434,6 +1456,158 @@ def phase_loaders_path(features, pairs, tokens, main_loader):
     emit({"phase": "loaders_path", "seconds": time.perf_counter() - t_phase,
           "launches_by_path": total})
     return total
+
+
+def host_cpu():
+    """The host CPU's model (/proc/cpuinfo's "model name", else lscpu's
+    "Model name") and the machine's architecture."""
+    import platform
+    model = None
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    if model is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=60).stdout
+        except OSError:
+            out = ""
+        for line in out.splitlines():
+            if line.startswith("Model name:"):
+                model = line.split(":", 1)[1].strip()
+                break
+    return f"{model or 'unknown'} ({platform.machine()})"
+
+
+def phase_native_host(features, pairs, build_info, n_pairs=256,
+                      n_lines=500_000):
+    """The port's native host library (``abnet3_torch.native``) on this
+    host: the build line; on the corpus's first ``n_pairs`` same train
+    pairs, native DTW over the native cosine distances equal to
+    ``dtw_numpy_fast`` on the same float64 matrix (paths exactly, cost
+    within 1e-9) and the fused ``dtw_align`` equal to that path, ms a
+    pair native and by the numpy route; a pair file of ``n_lines`` lines
+    (the sampler's pairs repeated) read natively equal to the Python
+    parser; the host backend's batch of loaders_path through the native
+    alignment and through the numpy route, in turns. These are host
+    figures: they are printed beside the host's CPU model."""
+    import tempfile
+
+    import abnet3_torch.dataloader as dataloader
+    from abnet3_torch import native
+    from abnet3_torch.utils import (cosine_distance, dtw_numpy_fast,
+                                    group_pairs, read_dataset,
+                                    read_dataset_python)
+    t_phase = time.perf_counter()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    emit({"phase": "native_host", "build_s": build_info["seconds"],
+          "compiled": build_info["compiled"],
+          "compiler": build_info["compiler"],
+          "library": os.path.relpath(build_info["path"], REPO),
+          "gxx": gxx.stdout.splitlines()[0], "cpu": host_cpu(),
+          "nproc": len(os.sched_getaffinity(0))})
+
+    same = group_pairs(pairs["train"])["same"][:n_pairs]
+    tokens = [(features.get(f1, s1, e1), features.get(f2, s2, e2))
+              for f1, s1, e1, f2, s2, e2 in same]
+    if len(tokens) != n_pairs or not all(len(x) and len(y)
+                                         for x, y in tokens):
+        raise AssertionError(f"{len(tokens)} same pairs, or an empty token")
+
+    def numpy_route(x, y):
+        """The numpy host alignment: float32 cosine distances, then
+        ``dtw_numpy_fast``."""
+        _, p1, p2 = dtw_numpy_fast(cosine_distance(x, y))
+        return p1, p2
+
+    worst, numpy_route_differs = 0.0, 0
+    for x, y in tokens:
+        dist = native.cosine_distance(x, y)
+        cost, p1, p2 = native.dtw(dist)
+        ocost, o1, o2 = dtw_numpy_fast(dist)
+        a1, a2 = native.dtw_align(x, y)
+        if not all(np.array_equal(a, b) for a, b in (
+                (p1, o1), (p2, o2), (a1, p1), (a2, p2))):
+            raise AssertionError(f"native path != dtw_numpy_fast's at "
+                                 f"{x.shape} x {y.shape}")
+        worst = max(worst, abs(cost - ocost))
+        n1, n2 = numpy_route(x, y)
+        numpy_route_differs += not (np.array_equal(n1, p1)
+                                    and np.array_equal(n2, p2))
+    if worst > 1e-9:
+        raise AssertionError(f"native DTW cost off by {worst}")
+
+    def per_pair_ms(align):
+        t0 = time.perf_counter()
+        for x, y in tokens:
+            align(x, y)
+        return (time.perf_counter() - t0) * 1e3 / len(tokens)
+    align_ms = {"numpy": [], "native": []}
+    for route in ("numpy", "native", "native", "numpy"):
+        align_ms[route].append(per_pair_ms(
+            numpy_route if route == "numpy" else native.dtw_align))
+    emit({"phase": "native_host", "pairs": n_pairs,
+          "frames": [min(min(len(x), len(y)) for x, y in tokens),
+                     max(max(len(x), len(y)) for x, y in tokens)],
+          "dim": int(tokens[0][0].shape[1]), "paths_equal": True,
+          "max_cost_diff": worst,
+          "numpy_route_paths_differ": numpy_route_differs,
+          "ms_per_pair_native": align_ms["native"],
+          "ms_per_pair_numpy_route": align_ms["numpy"]})
+
+    lines = []
+    for split in ("train", "dev"):
+        with open(os.path.join(OUT, "pairs", f"{split}_pairs", "dataset"),
+                  "rb") as fh:
+            lines += [ln for ln in fh.read().splitlines() if ln.strip()]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dataset")
+        with open(path, "wb") as fh:
+            fh.write(b"\n".join((lines * -(-n_lines // len(lines)))
+                                [:n_lines]) + b"\n")
+        t0 = time.perf_counter()
+        got = read_dataset(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = read_dataset_python(path)
+        python_s = time.perf_counter() - t0
+    if len(got) != n_lines or got != want:
+        raise AssertionError("read_dataset (native) != read_dataset_python")
+    emit({"phase": "native_host", "pair_file_lines": n_lines,
+          "source_pairs": len(lines), "parse_equal": True,
+          "read_dataset_native_s": native_s,
+          "read_dataset_python_s": python_s})
+
+    # loaders_path's host batch (the same 64 dev pairs) through the
+    # native alignment and through the numpy route, in turns
+    grouped = group_pairs(pairs["dev"][:64])
+    native_alignment = dataloader.get_dtw_alignment
+    batch_ms, batches = {"numpy": [], "native": []}, {}
+    for route in ("numpy", "native", "native", "numpy"):
+        host = dataloader.OriginalDataLoader(None, None, seed=0,
+                                             align_backend="host")
+        host.features = features
+        if route == "numpy":
+            dataloader.get_dtw_alignment = numpy_route
+        try:
+            t0 = time.perf_counter()
+            batches[route] = host._host_batch(
+                *host.load_frames_from_pairs(grouped))
+            torch.cuda.synchronize()
+            batch_ms[route].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            dataloader.get_dtw_alignment = native_alignment
+    emit({"phase": "native_host", "host_batch_ms": batch_ms["native"],
+          "host_batch_ms_numpy_route": batch_ms["numpy"],
+          "rows": int(batches["native"].y.shape[0]),
+          "numpy_route_batch_equal": all(
+              torch.equal(getattr(batches["numpy"], f),
+                          getattr(batches["native"], f))
+              for f in ("x1", "x2", "y")),
+          "seconds": time.perf_counter() - t_phase})
 
 
 class GivenDraw:
@@ -3864,7 +4038,7 @@ def kernel_line(name, source, replaces, shape, launches, err, row,
 
 def main():
     smi_line = phase_device()
-    phase_build()
+    host_build = phase_build()
     max_err = phase_kernel()
     stats_err = phase_kernel_stats()
     moves_err = phase_kernel_moves()
@@ -3877,6 +4051,7 @@ def main():
     g_trainer, g_loader, moves_launches, costs_gather = phase_gather_path(
         trainer, loader)
     by_path = phase_loaders_path(features, pairs, tokens, loader)
+    phase_native_host(features, pairs, host_build)
     sampled, sampled_run, sampled_loader = phase_sampled_path(
         features, classes, spk)
     multitask, multitask_run = phase_multitask_path(features, pairs, spk,

@@ -16,8 +16,7 @@ import torch
 import abnet3_tpu.dataloader as J
 import abnet3_torch.dataloader as T
 from abnet3_tpu.utils import dtw_numpy_fast as jdtw
-from abnet3_torch.utils import (cosine_distance, dtw_numpy_fast,
-                                get_dtw_alignment)
+from abnet3_torch.utils import cosine_distance, dtw_numpy_fast
 from torch_parity import loader_corpus
 
 
@@ -272,8 +271,11 @@ def test_host_dtw_matches_jax(kind, shape):
 
 
 def test_host_alignment_matches_jax_numpy_path():
-    """``get_dtw_alignment`` is the cosine-distance DTW of the JAX host
-    path's numpy branch, zero-norm frames included."""
+    """The plain numpy pieces of the host DTW: ``cosine_distance`` equals
+    the JAX package's, zero-norm frames included, and ``dtw_numpy_fast``
+    over it gives the JAX numpy branch's paths. The host backend's own
+    alignment (``get_dtw_alignment``, the native library) is held against
+    the JAX package's native one by ``tests/test_torch_native.py``."""
     from abnet3_tpu.utils import cosine_distance as jcos
     rng = np.random.RandomState(1)
     a = rng.randn(12, 4).astype(np.float32)
@@ -282,7 +284,7 @@ def test_host_alignment_matches_jax_numpy_path():
     b[[0, 5]] = 0.0
     np.testing.assert_array_equal(cosine_distance(a, b), jcos(a, b))
     _, p1, p2 = jdtw(jcos(a, b))
-    t1, t2 = get_dtw_alignment(a, b)
+    _, t1, t2 = dtw_numpy_fast(cosine_distance(a, b))
     np.testing.assert_array_equal(t1, p1)
     np.testing.assert_array_equal(t2, p2)
 

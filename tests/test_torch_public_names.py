@@ -30,8 +30,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MISSING_MODULES = {
     # the Pallas kernels are ported as CUDA kernels (ROADMAP B)
     "abnet3_tpu.ops.pallas_dtw": "B: abnet3_torch.ops.cuda_dtw",
-    # the native pair parser and host DTW are only a speed-up
-    "abnet3_tpu.native": "not needed in torch: a speed-up only",
 }
 # public names the port's twin module lacks, and the item that holds them
 MISSING_NAMES = {
