@@ -54,6 +54,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from abnet3_torch.profiling import count, span
 from abnet3_torch.utils import (Features_Accessor, get_dtw_alignment,
                                 group_pairs, pow2_bucket, read_dataset,
                                 read_feats, read_spkid_file, resolve_device)
@@ -63,6 +64,15 @@ __all__ = ["Batch", "BankBatch", "SplitBankBatch", "FrameBankBatch",
            "TemporalCoherenceDataLoader", "FramesDataLoader",
            "MultiTaskDataLoader", "MultimodalDataLoader",
            "OnDeviceSamplerDataLoader", "prefetch_iterator"]
+
+# spans and counters (abnet3_torch.profiling), by the split a pass reads:
+# one batch's build; the alignment, walk and gathers of its device
+# alignment; the bytes its pageable host-to-device copies move
+_BUILD = {True: "train/loader.build", False: "dev/loader.build"}
+_ALIGN = {True: ("train/loader.align", "train/loader.walk",
+                 "train/loader.gather"),
+          False: ("dev/loader.align", "dev/loader.walk", "dev/loader.gather")}
+_H2D = {True: "train/h2d_pageable_bytes", False: "dev/h2d_pageable_bytes"}
 
 
 class Batch(NamedTuple):
@@ -425,20 +435,25 @@ class OriginalDataLoader(DataLoader):
             return
         mode = "train" if train_mode else "dev"
         batches, selected = self._select_batches(list(self.pairs[mode]))
+        n = 0
         for batch_id in selected:
-            grouped = group_pairs(batches[batch_id])
-            if self.align_backend == "device":
-                batch = self.load_frames_from_pairs_device(grouped)
-                if batch is None:
-                    continue
-                if self.tcl > 0:
-                    batch = self._add_tcl(batch)
-                yield batch
-            else:
-                X1, X2, y = self.load_frames_from_pairs(grouped)
-                if self.tcl > 0:
-                    X1, X2, y = self.add_tcl_to_batch((X1, X2, y))
-                yield self._host_batch(X1, X2, y)
+            with span(_BUILD[train_mode], n):
+                grouped = group_pairs(batches[batch_id])
+                if self.align_backend == "device":
+                    batch = self.load_frames_from_pairs_device(
+                        grouped, train_mode=train_mode)
+                    if batch is not None and self.tcl > 0:
+                        batch = self._add_tcl(batch, train_mode)
+                else:
+                    X1, X2, y = self.load_frames_from_pairs(grouped)
+                    if self.tcl > 0:
+                        X1, X2, y = self.add_tcl_to_batch((X1, X2, y))
+                    batch = self._host_batch(X1, X2, y,
+                                             train_mode=train_mode)
+            if batch is None:
+                continue
+            n += 1
+            yield batch
 
     def _select_batches(self, pairs):
         """Cut the pair list into batch_size slices (after a shuffle when
@@ -469,7 +484,7 @@ class OriginalDataLoader(DataLoader):
             return
         if self.bank_split:
             yield from self._split_bank_batches(ids1, ids2, ys, yspk,
-                                                count_stats=train_mode)
+                                                train_mode=train_mode)
             return
         bs = self.batch_size
         num_batches = (num_pairs + bs - 1) // bs
@@ -480,29 +495,33 @@ class OriginalDataLoader(DataLoader):
         else:
             selected = self._rng.permutation(num_batches)
         lens = self.token_bank.lengths_host
-        for b in selected:
-            sl = slice(b * bs, (b + 1) * bs)
-            bi1, bi2, by = ids1[sl], ids2[sl], ys[sl]
-            bspk = _take(yspk, sl)
-            n = len(bi1)
-            bucket = self.token_bank.bucket_for(
-                int(np.maximum(lens[bi1], lens[bi2]).max()))
-            w = np.ones(bs, np.float32)
-            if n < bs:  # pad the ragged tail; padded pairs weigh 0
-                pad = bs - n
-                bi1 = np.concatenate([bi1, np.zeros(pad, np.int32)])
-                bi2 = np.concatenate([bi2, np.zeros(pad, np.int32)])
-                by = np.concatenate([by, np.ones(pad, np.float32)])
-                if bspk is not None:
-                    bspk = np.concatenate([bspk, np.ones(pad, np.float32)])
-                w[n:] = 0.0
-            if train_mode:
-                self.statistics_training["SameType"] += int(
-                    ((by > 0) & (w > 0)).sum())
-                self.statistics_training["DiffType"] += int(
-                    ((by < 0) & (w > 0)).sum())
-            yield BankBatch(bi1.astype(np.int32), bi2.astype(np.int32),
-                            by, w, bspk, bucket=bucket, **self._tcl_fields())
+        for k, b in enumerate(selected):
+            with span(_BUILD[train_mode], k):
+                sl = slice(b * bs, (b + 1) * bs)
+                bi1, bi2, by = ids1[sl], ids2[sl], ys[sl]
+                bspk = _take(yspk, sl)
+                n = len(bi1)
+                bucket = self.token_bank.bucket_for(
+                    int(np.maximum(lens[bi1], lens[bi2]).max()))
+                w = np.ones(bs, np.float32)
+                if n < bs:  # pad the ragged tail; padded pairs weigh 0
+                    pad = bs - n
+                    bi1 = np.concatenate([bi1, np.zeros(pad, np.int32)])
+                    bi2 = np.concatenate([bi2, np.zeros(pad, np.int32)])
+                    by = np.concatenate([by, np.ones(pad, np.float32)])
+                    if bspk is not None:
+                        bspk = np.concatenate([bspk,
+                                               np.ones(pad, np.float32)])
+                    w[n:] = 0.0
+                if train_mode:
+                    self.statistics_training["SameType"] += int(
+                        ((by > 0) & (w > 0)).sum())
+                    self.statistics_training["DiffType"] += int(
+                        ((by < 0) & (w > 0)).sum())
+                batch = BankBatch(bi1.astype(np.int32), bi2.astype(np.int32),
+                                  by, w, bspk, bucket=bucket,
+                                  **self._tcl_fields())
+            yield batch
 
     def _tcl_fields(self):
         """The batch's temporal-coherence group as BankBatch /
@@ -515,11 +534,12 @@ class OriginalDataLoader(DataLoader):
         return {}
 
     def _split_bank_batches(self, ids1, ids2, ys, yspk=None,
-                            count_stats=True):
+                            train_mode=True):
         """Yield SplitBankBatch index batches with static per-group sizes:
         Bs same + Bd diff pairs per batch (proportional to the split's
         global same/diff ratio; ragged tails weigh 0, their speaker labels
-        +1)."""
+        +1). A train pass (``train_mode``) counts its pairs in
+        ``statistics_training``."""
         same = ys > 0
         s1, s2 = ids1[same], ids2[same]
         d1, d2 = ids1[~same], ids2[~same]
@@ -548,32 +568,35 @@ class OriginalDataLoader(DataLoader):
                                                  arr.dtype)])
             return sl, w
 
-        for b in selected:
-            bi1s, ws = take(s1, b, Bs)
-            bi2s, _ = take(s2, b, Bs)
-            bi1d, wd = take(d1, b, Bd)
-            bi2d, _ = take(d2, b, Bd)
-            if not n_s:
-                ws[:] = 0.0
-            if not n_d:
-                wd[:] = 0.0
-            maxlen = 1
-            if ws.any():
-                maxlen = max(maxlen, int(np.maximum(
-                    lens[bi1s], lens[bi2s])[ws > 0].max()))
-            if wd.any():
-                maxlen = max(maxlen, int(np.maximum(
-                    lens[bi1d], lens[bi2d])[wd > 0].max()))
-            bucket = self.token_bank.bucket_for(maxlen)
-            bspk_s = bspk_d = None
-            if yspk is not None:
-                bspk_s, _ = take(spk_s, b, Bs, fill=1.0)
-                bspk_d, _ = take(spk_d, b, Bd, fill=1.0)
-            if count_stats:  # train pairs only (dev passes don't count)
-                self.statistics_training["SameType"] += int(ws.sum())
-                self.statistics_training["DiffType"] += int(wd.sum())
-            yield SplitBankBatch(bi1s, bi2s, ws, bi1d, bi2d, wd, bspk_s,
-                                 bspk_d, bucket=bucket, **self._tcl_fields())
+        for k, b in enumerate(selected):
+            with span(_BUILD[train_mode], k):
+                bi1s, ws = take(s1, b, Bs)
+                bi2s, _ = take(s2, b, Bs)
+                bi1d, wd = take(d1, b, Bd)
+                bi2d, _ = take(d2, b, Bd)
+                if not n_s:
+                    ws[:] = 0.0
+                if not n_d:
+                    wd[:] = 0.0
+                maxlen = 1
+                if ws.any():
+                    maxlen = max(maxlen, int(np.maximum(
+                        lens[bi1s], lens[bi2s])[ws > 0].max()))
+                if wd.any():
+                    maxlen = max(maxlen, int(np.maximum(
+                        lens[bi1d], lens[bi2d])[wd > 0].max()))
+                bucket = self.token_bank.bucket_for(maxlen)
+                bspk_s = bspk_d = None
+                if yspk is not None:
+                    bspk_s, _ = take(spk_s, b, Bs, fill=1.0)
+                    bspk_d, _ = take(spk_d, b, Bd, fill=1.0)
+                if train_mode:  # train pairs only (dev passes don't count)
+                    self.statistics_training["SameType"] += int(ws.sum())
+                    self.statistics_training["DiffType"] += int(wd.sum())
+                batch = SplitBankBatch(bi1s, bi2s, ws, bi1d, bi2d, wd,
+                                       bspk_s, bspk_d, bucket=bucket,
+                                       **self._tcl_fields())
+            yield batch
 
     # -- device batch construction ----------------------------------------
 
@@ -593,15 +616,18 @@ class OriginalDataLoader(DataLoader):
             out.append(((feat1, feat2), pair))
         return out
 
-    def load_frames_from_pairs_device(self, pairs, fid2spk=None):
+    def load_frames_from_pairs_device(self, pairs, fid2spk=None,
+                                      train_mode=True):
         """Device-aligned batch of grouped pairs ({'same': [...], 'diff':
         [...]}), or None when no pair is valid (reference
         dataloader.py:166-261); with ``fid2spk`` it carries the speaker
-        labels."""
+        labels. ``train_mode``: the split whose pass the batch is for
+        (it names the batch's spans and counters)."""
         return self._assemble_device(pairs, self.get_token_feats(pairs),
-                                     fid2spk)
+                                     fid2spk, train_mode)
 
-    def _assemble_device(self, pairs, token_feats, fid2spk=None):
+    def _assemble_device(self, pairs, token_feats, fid2spk=None,
+                         train_mode=True):
         """Pad each group into power-of-two length buckets, align it on
         the device (DTW for same pairs, truncate/diagonal for different
         ones), gather the aligned frames and flatten both groups into one
@@ -621,21 +647,24 @@ class OriginalDataLoader(DataLoader):
             is_same = group == "same"
             T1 = pow2_bucket(max(len(a) for a, _ in feats))
             T2 = pow2_bucket(max(len(b) for _, b in feats))
-            f1, n1 = (torch.from_numpy(a).to(dev) for a in
-                      _pad_tokens([a for a, _ in feats], T1))
-            f2, n2 = (torch.from_numpy(a).to(dev) for a in
-                      _pad_tokens([b for _, b in feats], T2))
+            padded = (_pad_tokens([a for a, _ in feats], T1)
+                      + _pad_tokens([b for _, b in feats], T2))
+            count(_H2D[train_mode], sum(a.nbytes for a in padded))
+            f1, n1, f2, n2 = (torch.from_numpy(a).to(dev) for a in padded)
             segs.append(aligned_frame_pairs(
                 f1, f2, n1, n2, is_same,
-                align_different_words=self.align_different_words))
+                align_different_words=self.align_different_words,
+                spans=_ALIGN[train_mode]))
             key = "SameType" if is_same else "DiffType"
             self.statistics_training[key] += len(feats)
             if fid2spk is not None:
                 same_spk = [fid2spk[p[0]] == fid2spk[p[3]]
                             for _, p in collected]
-                spk_segs.append(torch.from_numpy(np.repeat(
+                spk = np.repeat(
                     np.where(same_spk, 1.0, -1.0).astype(np.float32),
-                    segs[-1][0].shape[0] // len(feats))).to(dev))
+                    segs[-1][0].shape[0] // len(feats))
+                count(_H2D[train_mode], spk.nbytes)
+                spk_segs.append(torch.from_numpy(spk).to(dev))
                 for s in same_spk:
                     self.statistics_training[
                         key + ("SameSpk" if s else "DiffSpk")] += 1
@@ -708,13 +737,16 @@ class OriginalDataLoader(DataLoader):
                 y_phn[ind]
         return X1[ind, :], X2[ind, :], y_phn[ind]
 
-    def _host_batch(self, X1, X2, y, y_spk=None) -> Batch:
+    def _host_batch(self, X1, X2, y, y_spk=None, train_mode=True) -> Batch:
         """Host frame arrays as a :class:`Batch` on the loader's device
-        (float32, every row weight 1)."""
+        (float32, every row weight 1); ``train_mode`` names the counter of
+        the bytes copied."""
         dev = resolve_device(self.device)
 
         def put(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            a = np.asarray(a, np.float32)
+            count(_H2D[train_mode], a.nbytes)
+            return torch.from_numpy(a).to(dev)
         y = put(y)
         return Batch(put(X1), put(X2), y,
                      torch.ones(len(y), dtype=torch.float32, device=dev),
@@ -761,7 +793,7 @@ class OriginalDataLoader(DataLoader):
         return (np.vstack((X1, X1_t)), np.vstack((X2, X2_t)),
                 np.concatenate((Y, Y_t)))
 
-    def _add_tcl(self, batch: Batch) -> Batch:
+    def _add_tcl(self, batch: Batch, train_mode: bool = True) -> Batch:
         """Mix tcl fraction of coherence pairs into a device batch, sized
         from its weighted frame count (one host sync)."""
         n_valid = float(batch.weights.sum())
@@ -769,7 +801,7 @@ class OriginalDataLoader(DataLoader):
         X1_t, X2_t, Y_t = self.temporal_coherence_loss(num_to_add)
         if len(Y_t) == 0:
             return batch
-        t = self._host_batch(X1_t, X2_t, Y_t)
+        t = self._host_batch(X1_t, X2_t, Y_t, train_mode=train_mode)
         return Batch(*(torch.cat([a, b]) for a, b in zip(batch[:4], t[:4])))
 
     def _build_frame_bank(self):
@@ -1294,17 +1326,22 @@ class MultiTaskDataLoader(OriginalDataLoader):
         mode = "train" if train_mode else "dev"
         fid2spk = read_spkid_file(self.fid2spk_file)
         batches, selected = self._select_batches(list(self.pairs[mode]))
+        n = 0
         for idx in selected:
-            grouped = group_pairs(batches[idx])
-            if self.align_backend == "device":
-                batch = self.load_frames_from_pairs_device(grouped,
-                                                           fid2spk=fid2spk)
-                if batch is not None:
-                    yield batch
-            else:
-                X1, X2, y_spk, y_phn = self.load_frames_from_pairs(
-                    grouped, fid2spk=fid2spk)
-                yield self._host_batch(X1, X2, y_phn, y_spk)
+            with span(_BUILD[train_mode], n):
+                grouped = group_pairs(batches[idx])
+                if self.align_backend == "device":
+                    batch = self.load_frames_from_pairs_device(
+                        grouped, fid2spk=fid2spk, train_mode=train_mode)
+                else:
+                    X1, X2, y_spk, y_phn = self.load_frames_from_pairs(
+                        grouped, fid2spk=fid2spk)
+                    batch = self._host_batch(X1, X2, y_phn, y_spk,
+                                             train_mode=train_mode)
+            if batch is None:
+                continue
+            n += 1
+            yield batch
 
 
 class MultimodalDataLoader(FramesDataLoader):

@@ -40,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from abnet3_torch import dist as mesh_dist
-from abnet3_torch.profiling import stage_trace
+from abnet3_torch.profiling import span, stage_trace
 from abnet3_torch.utils import EmbeddingObserver, resolve_device
 
 __all__ = ["EmbedderBuilder", "EmbedderSiamese", "EmbedderSiameseMultitask",
@@ -323,84 +323,87 @@ class EmbedderBuilder:
                 on_file_done(item, labels, out)
 
         def drain_one():
-            spans, valid, heads = pending.pop(0)
-            decs = [_decode_rows(head, valid) for head in heads]
-            for h, d in enumerate(decs):
-                head_dims[h] = d.shape[1]
-            r = 0
-            for seq, k in spans:
-                rec = live[seq]
-                for h in range(n_outputs):
-                    rec[2][h].append(decs[h][r:r + k])
-                rec[3] -= k
-                r += k
+            with span("embed.drain"):
+                spans, valid, heads = pending.pop(0)
+                decs = [_decode_rows(head, valid) for head in heads]
+                for h, d in enumerate(decs):
+                    head_dims[h] = d.shape[1]
+                r = 0
+                for seq, k in spans:
+                    rec = live[seq]
+                    for h in range(n_outputs):
+                        rec[2][h].append(decs[h][r:r + k])
+                    rec[3] -= k
+                    r += k
             emit_ready()
 
         def dispatch(valid):
             nonlocal buf_rows
-            spans, pieces, got = [], [], 0
-            while got < valid:
-                seq, mods = buf[0]
-                n = len(mods[0])
-                take = min(n, valid - got)
-                spans.append((seq, take))
-                pieces.append([m[:take] for m in mods])
-                if take == n:
-                    buf.pop(0)
-                else:
-                    buf[0] = (seq, tuple(m[take:] for m in mods))
-                got += take
-            buf_rows -= valid
-            target = bs if valid == bs else self._pad_target(valid)
-            xs = []
-            for k in range(len(pieces[0])):
-                chunk = (pieces[0][k] if len(pieces) == 1
-                         else np.vstack([p[k] for p in pieces]))
-                if target > valid:
-                    chunk = np.vstack([chunk, np.repeat(
-                        chunk[-1:], target - valid, axis=0)])
-                xs.append(torch.from_numpy(
-                    np.ascontiguousarray(chunk)).to(device))
-            pending.append((spans, valid, forward(*xs)))
-            if len(pending) >= _WINDOW:
-                drain_one()
+            with span("embed.dispatch"):
+                spans, pieces, got = [], [], 0
+                while got < valid:
+                    seq, mods = buf[0]
+                    n = len(mods[0])
+                    take = min(n, valid - got)
+                    spans.append((seq, take))
+                    pieces.append([m[:take] for m in mods])
+                    if take == n:
+                        buf.pop(0)
+                    else:
+                        buf[0] = (seq, tuple(m[take:] for m in mods))
+                    got += take
+                buf_rows -= valid
+                target = bs if valid == bs else self._pad_target(valid)
+                xs = []
+                for k in range(len(pieces[0])):
+                    chunk = (pieces[0][k] if len(pieces) == 1
+                             else np.vstack([p[k] for p in pieces]))
+                    if target > valid:
+                        chunk = np.vstack([chunk, np.repeat(
+                            chunk[-1:], target - valid, axis=0)])
+                    xs.append(torch.from_numpy(
+                        np.ascontiguousarray(chunk)).to(device))
+                pending.append((spans, valid, forward(*xs)))
+                if len(pending) >= _WINDOW:
+                    drain_one()
 
-        for seq, (item, labels, feat) in enumerate(stream):
-            mods = tuple(np.asarray(m, np.float32) for m in (
-                feat if isinstance(feat, tuple) else (feat,)))
-            n = len(mods[0])
-            if any(len(m) != n for m in mods):
-                raise ValueError(f"{item}: the modalities have "
-                                 f"{[len(m) for m in mods]} frames; they "
-                                 "must have the same frame count")
-            if all(m.ndim == 2 for m in mods):
-                in_dims = [m.shape[1] for m in mods]
-            live[seq] = [item, labels, [[] for _ in range(n_outputs)], n]
-            if n == 0:
+        with span("embed.export"):
+            for seq, (item, labels, feat) in enumerate(stream):
+                mods = tuple(np.asarray(m, np.float32) for m in (
+                    feat if isinstance(feat, tuple) else (feat,)))
+                n = len(mods[0])
+                if any(len(m) != n for m in mods):
+                    raise ValueError(f"{item}: the modalities have "
+                                     f"{[len(m) for m in mods]} frames; they "
+                                     "must have the same frame count")
+                if all(m.ndim == 2 for m in mods):
+                    in_dims = [m.shape[1] for m in mods]
+                live[seq] = [item, labels, [[] for _ in range(n_outputs)], n]
+                if n == 0:
+                    emit_ready()
+                    continue
+                buf.append((seq, mods))
+                buf_rows += n
+                while buf_rows >= bs:
+                    dispatch(bs)
+            if buf_rows:
+                dispatch(buf_rows)
+            while pending:
+                drain_one()
+            if live:
+                # only 0-frame files can remain: the stream never ran a
+                # forward (all files empty), so probe one ladder-rung zero
+                # chunk for the head dims
+                if head_dims[0] is None and in_dims is not None:
+                    heads = forward(*(torch.zeros(
+                        (self._pad_target(1), d), dtype=torch.float32,
+                        device=device) for d in in_dims))
+                    for h, head in enumerate(heads):
+                        head_dims[h] = decode_transfer(head).shape[1]
+                if head_dims[0] is None:
+                    head_dims = [0] * n_outputs
                 emit_ready()
-                continue
-            buf.append((seq, mods))
-            buf_rows += n
-            while buf_rows >= bs:
-                dispatch(bs)
-        if buf_rows:
-            dispatch(buf_rows)
-        while pending:
-            drain_one()
-        if live:
-            # only 0-frame files can remain: the stream never ran a
-            # forward (all files empty), so probe one ladder-rung zero
-            # chunk for the head dims
-            if head_dims[0] is None and in_dims is not None:
-                heads = forward(*(torch.zeros(
-                    (self._pad_target(1), d), dtype=torch.float32,
-                    device=device) for d in in_dims))
-                for h, head in enumerate(heads):
-                    head_dims[h] = decode_transfer(head).shape[1]
-            if head_dims[0] is None:
-                head_dims = [0] * n_outputs
-            emit_ready()
-        assert not live
+            assert not live
 
     def _embed_file(self, forward, suffixes):
         """Embed ``feature_path`` into one h5features file a head

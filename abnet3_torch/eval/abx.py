@@ -53,6 +53,7 @@ from abnet3_torch.ops.dtw import (anchor_angular_distance_rows,
                                   dtw_path_stats_rows,
                                   pairwise_angular_distance,
                                   pairwise_kl_distance, unit_frames)
+from abnet3_torch.profiling import span
 from abnet3_torch.utils import full_float32
 
 __all__ = ["make_pair_distance_fn", "distance_matrix", "abx_error",
@@ -252,14 +253,16 @@ def _dtw_tile_fn(bank, distance: str, T: int, block: int,
         out = torch.empty((n_rows, block), dtype=torch.float32,
                           device=device)
         for r, i in enumerate(ids_i.tolist()):
-            fi = bank.bank[i, :Tc]
-            if kl:
-                rows = anchor_kl_distance_rows(fi, fj)
-            else:
-                rows = anchor_angular_distance_rows(fi, fj, y_unit=y_unit)
-            n1.fill_(min(int(bank.lengths_host[i]), Tc))
-            psum, plen = dtw_path_stats_rows(rows, n1, nj)
-            torch.div(psum, torch.clamp(plen, min=1.0), out=out[r])
+            with span("abx.row", r):
+                fi = bank.bank[i, :Tc]
+                if kl:
+                    rows = anchor_kl_distance_rows(fi, fj)
+                else:
+                    rows = anchor_angular_distance_rows(fi, fj,
+                                                        y_unit=y_unit)
+                n1.fill_(min(int(bank.lengths_host[i]), Tc))
+                psum, plen = dtw_path_stats_rows(rows, n1, nj)
+                torch.div(psum, torch.clamp(plen, min=1.0), out=out[r])
         return out
 
     return tile
@@ -462,39 +465,44 @@ def _tiles_distance_matrix(bank, distance, batch_size, max_frames,
     window = 4
 
     def drain_one():
-        ti, tj, out = pending.pop(0)
-        i0, j0 = starts[ti], starts[tj]
-        ni = min(block, N - i0)
-        nj = min(block, N - j0)
-        raw = out.cpu().numpy()[:ni, :nj]
-        vals = decode(raw, out_dtype)
-        if tj == ti:
-            # a diagonal tile computes both orders of each pair, and
-            # DTW(i,j) vs DTW(j,i) may round one u16 step apart: mirror
-            # the upper triangle so the matrix is exactly symmetric
-            vals = np.triu(vals) + np.triu(vals, 1).T
-            raw = np.triu(raw) + np.triu(raw, 1).T
-        D[i0:i0 + ni, j0:j0 + nj] = vals
-        if tj != ti:
-            D[j0:j0 + nj, i0:i0 + ni] = vals.T
-        if wire is not None:
-            wire[i0:i0 + ni, j0:j0 + nj] = raw
+        with span("abx.drain"):
+            ti, tj, out = pending.pop(0)
+            i0, j0 = starts[ti], starts[tj]
+            ni = min(block, N - i0)
+            nj = min(block, N - j0)
+            raw = out.cpu().numpy()[:ni, :nj]
+            vals = decode(raw, out_dtype)
+            if tj == ti:
+                # a diagonal tile computes both orders of each pair, and
+                # DTW(i,j) vs DTW(j,i) may round one u16 step apart:
+                # mirror the upper triangle so the matrix is exactly
+                # symmetric
+                vals = np.triu(vals) + np.triu(vals, 1).T
+                raw = np.triu(raw) + np.triu(raw, 1).T
+            D[i0:i0 + ni, j0:j0 + nj] = vals
             if tj != ti:
-                wire[j0:j0 + nj, i0:i0 + ni] = raw.T
-        record(ti, tj)
+                D[j0:j0 + nj, i0:i0 + ni] = vals.T
+            if wire is not None:
+                wire[i0:i0 + ni, j0:j0 + nj] = raw
+                if tj != ti:
+                    wire[j0:j0 + nj, i0:i0 + ni] = raw.T
+            record(ti, tj)
 
+    n_run = 0
     for ti in range(n_tiles):
         ids_i = tile_ids(ti)
         for tj in range(ti, n_tiles):
             if (ti, tj) in done:
                 continue
-            out = encode(tile(ids_i, tile_ids(tj)))
-            if dev is not None:
-                dev.write(starts[ti], starts[tj], out)
-            if host_out:
-                pending.append((ti, tj, out))
-                if len(pending) >= window:
-                    drain_one()
+            with span("abx.tile", n_run):
+                out = encode(tile(ids_i, tile_ids(tj)))
+                if dev is not None:
+                    dev.write(starts[ti], starts[tj], out)
+                if host_out:
+                    pending.append((ti, tj, out))
+                    if len(pending) >= window:
+                        drain_one()
+            n_run += 1
     while pending:
         drain_one()
     if host_out:

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from abnet3_torch.profiling import span
 from abnet3_torch.utils import pow2_bucket, resolve_device
 
 __all__ = ["DeviceMatrix", "upload_matrix", "abx_error_device",
@@ -473,6 +474,13 @@ def abx_error_device(D, labels: Sequence, speakers: Sequence,
     on its own device, or a host (N, N) matrix, uploaded to ``device``
     (default the card) once there are cells to score. ``by``
     conditioning and the within task run in one pass each."""
+    with span("abx.score"):
+        return _abx_error_device(D, labels, speakers, task, by, chunk,
+                                 return_cells, device)
+
+
+def _abx_error_device(D, labels, speakers, task, by, chunk, return_cells,
+                      device) -> Dict:
     assert task in ("across", "within")
     labels = np.asarray(labels)
     speakers = np.asarray(speakers)
@@ -485,67 +493,70 @@ def abx_error_device(D, labels: Sequence, speakers: Sequence,
         dm = None  # upload only if there are cells to score
     assert len(speakers) == N
 
-    keys, gid, cls, row_off, group_classes = _composite_classes(labels,
-                                                                by)
-    spks, spk = _dense_ids(speakers)
-    G, S = len(keys), len(spks)
-    Crows = int(row_off[-1])
-    Ccols = max(int(row_off[g + 1] - row_off[g]) for g in range(G))
-    n_cs = np.zeros((Crows, S), np.int64)
-    np.add.at(n_cs, (cls, spk), 1)
+    # the host tables, built anew on every call (and a host matrix's
+    # upload)
+    with span("abx.score.tables"):
+        keys, gid, cls, row_off, group_classes = _composite_classes(labels,
+                                                                    by)
+        spks, spk = _dense_ids(speakers)
+        G, S = len(keys), len(spks)
+        Crows = int(row_off[-1])
+        Ccols = max(int(row_off[g + 1] - row_off[g]) for g in range(G))
+        n_cs = np.zeros((Crows, S), np.int64)
+        np.add.at(n_cs, (cls, spk), 1)
 
-    cnts = [_cell_counts(n_cs[row_off[g]:row_off[g + 1]], task)
-            for g in range(G)]
-    if not any((c > 0).any() for c in cnts):
-        out = {"error": float("nan"), "n_cells": 0, "n_triplets": 0}
-        if return_cells:
-            out["cells"] = []
-        return out
-    if max(float(c.max()) for c in cnts if c.size) >= _F32_EXACT:
-        raise ValueError(
-            "a single ABX cell carries >= 2^24 triplets — float32 "
-            "device bins would round its counts; score this inventory "
-            "with the host path (abx.abx_error)")
-    if dm is None:
-        dm = upload_matrix(D, device=device)
-    device = dm.device
+        cnts = [_cell_counts(n_cs[row_off[g]:row_off[g + 1]], task)
+                for g in range(G)]
+        if not any((c > 0).any() for c in cnts):
+            out = {"error": float("nan"), "n_cells": 0, "n_triplets": 0}
+            if return_cells:
+                out["cells"] = []
+            return out
+        if max(float(c.max()) for c in cnts if c.size) >= _F32_EXACT:
+            raise ValueError(
+                "a single ABX cell carries >= 2^24 triplets — float32 "
+                "device bins would round its counts; score this inventory "
+                "with the host path (abx.abx_error)")
+        if dm is None:
+            dm = upload_matrix(D, device=device)
+        device = dm.device
 
-    x_ids, x_seg, x_cnt, pool_spk, pool_of, max_x = _pool_tables(
-        cls, spk, gid, row_off, Ccols)
-    b_ids, b_cnt, max_b = _anchor_b_tables(cls, spk, Crows, task)
-    n_pools = len(x_cnt)
+        x_ids, x_seg, x_cnt, pool_spk, pool_of, max_x = _pool_tables(
+            cls, spk, gid, row_off, Ccols)
+        b_ids, b_cnt, max_b = _anchor_b_tables(cls, spk, Crows, task)
+        n_pools = len(x_cnt)
 
-    # bin ROW id per token: the across task scatters into composite
-    # class rows; the within task into dense OCCUPIED (speaker,
-    # composite-class) rows so one pass covers every speaker's cells
-    if task == "across":
-        n_rows = Crows
-        row_tab = cls
-    else:
-        occ_sc = np.zeros((S, Crows), bool)   # occupied (s, ca) rows
-        for g in range(G):
-            # (Cg, S) any-triplet mask over the anchor axis
-            m = (cnts[g] > 0).any(axis=1)
-            occ_sc[:, row_off[g]:row_off[g + 1]] = m.T
-        lk = np.full((S, Crows), -1, np.int64)
-        occ_s, occ_r = np.nonzero(occ_sc)     # s-major row order
-        n_rows = len(occ_s)
-        lk[occ_s, occ_r] = np.arange(n_rows)
-        row_tab = lk[spk, cls]
-        row_tab = np.where(row_tab < 0, n_rows, row_tab) \
-            .astype(np.int32)                 # unoccupied -> dump row
+        # bin ROW id per token: the across task scatters into composite
+        # class rows; the within task into dense OCCUPIED (speaker,
+        # composite-class) rows so one pass covers every speaker's cells
+        if task == "across":
+            n_rows = Crows
+            row_tab = cls
+        else:
+            occ_sc = np.zeros((S, Crows), bool)   # occupied (s, ca) rows
+            for g in range(G):
+                # (Cg, S) any-triplet mask over the anchor axis
+                m = (cnts[g] > 0).any(axis=1)
+                occ_sc[:, row_off[g]:row_off[g + 1]] = m.T
+            lk = np.full((S, Crows), -1, np.int64)
+            occ_s, occ_r = np.nonzero(occ_sc)     # s-major row order
+            n_rows = len(occ_s)
+            lk[occ_s, occ_r] = np.arange(n_rows)
+            row_tab = lk[spk, cls]
+            row_tab = np.where(row_tab < 0, n_rows, row_tab) \
+                .astype(np.int32)                 # unoccupied -> dump row
 
-    # slot geometry: A anchors per pool slot, P slots per chunk. Large
-    # pools (unconditioned inventories) get A = chunk, P = 1; tiny
-    # by-group pools pack many slots per chunk instead of padding each
-    # to `chunk`.
-    A = min(chunk, pow2_bucket(int(x_cnt.max()), minimum=8))
-    P = max(1, chunk // A)
+        # slot geometry: A anchors per pool slot, P slots per chunk. Large
+        # pools (unconditioned inventories) get A = chunk, P = 1; tiny
+        # by-group pools pack many slots per chunk instead of padding each
+        # to `chunk`.
+        A = min(chunk, pow2_bucket(int(x_cnt.max()), minimum=8))
+        P = max(1, chunk // A)
 
-    # static tables: on the device once for the whole scoring run
-    statics = tuple(_to_device(a, device) for a in (
-        row_tab, b_ids, b_cnt, x_ids, x_seg, x_cnt))
-    by_pool = [np.flatnonzero(pool_of == p) for p in range(n_pools)]
+        # static tables: on the device once for the whole scoring run
+        statics = tuple(_to_device(a, device) for a in (
+            row_tab, b_ids, b_cnt, x_ids, x_seg, x_cnt))
+        by_pool = [np.flatnonzero(pool_of == p) for p in range(n_pools)]
     rows_pb = dm.rows_per_block
     n_blocks = len(dm.blocks)
 

@@ -14,6 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from abnet3_torch.profiling import span
 from abnet3_torch.utils import resolve_device
 
 __all__ = ["TokenBank", "upload_rows"]
@@ -40,26 +41,28 @@ class TokenBank:
 
     def __init__(self, token_feats: Dict, max_frames: int = None,
                  device=None):
-        """token_feats: {key: (T_i, d) float32 array}."""
-        device = resolve_device(device)
-        self.keys = list(token_feats.keys())
-        self.key_to_id = {k: i for i, k in enumerate(self.keys)}
-        lens = [len(token_feats[k]) for k in self.keys]
-        T = _bucket(max(max(lens), 1))
-        if max_frames is not None:
-            T = min(T, _bucket(max_frames))
-        d = next(iter(token_feats.values())).shape[1]
-        bank = np.zeros((len(self.keys), T, d), np.float32)
-        for i, k in enumerate(self.keys):
-            f = token_feats[k]
-            n = min(len(f), T)
-            bank[i, :n] = f[:n]
-        self.max_len = T
-        self.dim = d
-        self.bank = torch.from_numpy(bank).to(device)
-        # host copy: bucketing reads lengths without a device sync
-        self.lengths_host = np.minimum(np.asarray(lens, np.int32), T)
-        self.lengths = torch.from_numpy(self.lengths_host).to(device)
+        """token_feats: {key: (T_i, d) float32 array}. The host padding
+        and the upload are the span ``bank.build``."""
+        with span("bank.build"):
+            device = resolve_device(device)
+            self.keys = list(token_feats.keys())
+            self.key_to_id = {k: i for i, k in enumerate(self.keys)}
+            lens = [len(token_feats[k]) for k in self.keys]
+            T = _bucket(max(max(lens), 1))
+            if max_frames is not None:
+                T = min(T, _bucket(max_frames))
+            d = next(iter(token_feats.values())).shape[1]
+            bank = np.zeros((len(self.keys), T, d), np.float32)
+            for i, k in enumerate(self.keys):
+                f = token_feats[k]
+                n = min(len(f), T)
+                bank[i, :n] = f[:n]
+            self.max_len = T
+            self.dim = d
+            self.bank = torch.from_numpy(bank).to(device)
+            # host copy: bucketing reads lengths without a device sync
+            self.lengths_host = np.minimum(np.asarray(lens, np.int32), T)
+            self.lengths = torch.from_numpy(self.lengths_host).to(device)
 
     def __len__(self):
         return len(self.keys)

@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from abnet3_torch.profiling import span
+
 __all__ = ["pairwise_angular_distance", "unit_frames",
            "anchor_angular_distance_rows", "dtw_path_stats_auto",
            "pairwise_kl_distance", "anchor_kl_distance_rows", "dtw_costs",
@@ -427,7 +429,8 @@ def align_diff_batch(n1: torch.Tensor, n2: torch.Tensor, T1: int, T2: int,
 def aligned_frame_pairs(f1: torch.Tensor, f2: torch.Tensor,
                         n1: torch.Tensor, n2: torch.Tensor, same: bool,
                         align_different_words: bool = False,
-                        pair_w: Optional[torch.Tensor] = None):
+                        pair_w: Optional[torch.Tensor] = None,
+                        spans: Optional[Tuple[str, str, str]] = None):
     """Aligned frame pairs of one group of padded token pairs: f1 (B, T1,
     d), f2 (B, T2, d), n1/n2 (B,) true lengths.
 
@@ -436,19 +439,28 @@ def aligned_frame_pairs(f1: torch.Tensor, f2: torch.Tensor,
     max(T1, T2)). Returns (x1, x2, y, w): the gathered frames flattened to
     (B*L, d) each, y (B*L,) +1 or -1, and w (B*L,) 1 on each path's steps
     and 0 past them, times the per-pair weight ``pair_w`` (B,) if given.
+    ``spans``: the names of the spans (:mod:`abnet3_torch.profiling`)
+    around the alignment (distances and moves, or the different words'
+    paths), :func:`walk_moves` and the gathers.
     """
+    align, walk, gather = spans or (None, None, None)
     if same:
-        p1, p2, plen = dtw_align_batch(f1, f2, n1, n2)
+        with span(align):
+            move = dtw_moves_auto(pairwise_angular_distance(f1, f2))
+        with span(walk):
+            p1, p2, plen = walk_moves(move, n1, n2)
     else:
-        p1, p2, plen = align_diff_batch(
-            n1, n2, f1.shape[1], f2.shape[1],
-            align_different_words=align_different_words)
-    x1 = gather_aligned(f1, p1)                          # (B, L, d)
-    x2 = gather_aligned(f2, p2)
-    B, L, d = x1.shape
-    dev = x1.device
-    w = (torch.arange(L, device=dev)[None, :] < plen[:, None]).float()
-    if pair_w is not None:
-        w = w * pair_w[:, None]
-    y = torch.full((B * L,), 1.0 if same else -1.0, device=dev)
-    return x1.reshape(-1, d), x2.reshape(-1, d), y, w.reshape(-1)
+        with span(align):
+            p1, p2, plen = align_diff_batch(
+                n1, n2, f1.shape[1], f2.shape[1],
+                align_different_words=align_different_words)
+    with span(gather):
+        x1 = gather_aligned(f1, p1)                      # (B, L, d)
+        x2 = gather_aligned(f2, p2)
+        B, L, d = x1.shape
+        dev = x1.device
+        w = (torch.arange(L, device=dev)[None, :] < plen[:, None]).float()
+        if pair_w is not None:
+            w = w * pair_w[:, None]
+        y = torch.full((B * L,), 1.0 if same else -1.0, device=dev)
+        return x1.reshape(-1, d), x2.reshape(-1, d), y, w.reshape(-1)

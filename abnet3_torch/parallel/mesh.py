@@ -86,6 +86,7 @@ from abnet3_torch import dist as mesh_dist
 from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
                                   dtw_align_from_dist, dtw_path_from_dist,
                                   gather_aligned, pairwise_angular_distance)
+from abnet3_torch.profiling import span
 
 __all__ = ["make_mesh", "mesh_shape", "param_shardings", "shard_array",
            "shard_network", "make_split_pair_train_step",
@@ -334,11 +335,13 @@ def _train_on(network, optimizer, evaluate) -> torch.Tensor:
     replay = (network.replay()
               if getattr(optimizer, "takes_closure", False) else None)
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    v = evaluate()
-    v.backward()
-    # in a sharded step: the gradient and the loss of the global batch
-    mesh_dist.reduce_grads(params)
-    v = mesh_dist.global_sum(v.detach())
+    with span("train/step.forward"):
+        v = evaluate()
+    with span("train/step.backward"):
+        v.backward()
+        # in a sharded step: the gradient and the loss of the global batch
+        mesh_dist.reduce_grads(params)
+        v = mesh_dist.global_sum(v.detach())
 
     def closure():
         with replay:
@@ -348,7 +351,8 @@ def _train_on(network, optimizer, evaluate) -> torch.Tensor:
         mesh_dist.reduce_grads(params)
         return mesh_dist.global_sum(again.detach())
 
-    _opt_step(optimizer, v, closure)
+    with span("train/step.optimizer"):
+        _opt_step(optimizer, v, closure)
     return v
 
 
@@ -547,7 +551,8 @@ def _frame_pair_steps(network, loss, optimizer, side=None):
     @torch.no_grad()
     def eval_step(x1, x2, y, w, y_spk=None):
         network.eval()
-        return _frame_value(network, loss, x1, x2, y, w, y_spk)
+        with span("dev/step.forward"):
+            return _frame_value(network, loss, x1, x2, y, w, y_spk)
 
     return train_step, eval_step
 
@@ -578,10 +583,14 @@ def _gather_steps(network, loss, optimizer, prepare, side=None):
                                                 side)
 
     def train_step(*args):
-        return frame_train(*prepare(*args))
+        with span("train/step.prepare"):
+            frames = prepare(*args)
+        return frame_train(*frames)
 
     def eval_step(*args):
-        return frame_eval(*prepare(*args))
+        with span("dev/step.prepare"):
+            frames = prepare(*args)
+        return frame_eval(*frames)
 
     return train_step, eval_step
 
@@ -595,14 +604,18 @@ def _matrix_steps(network, optimizer, prepare, value, layout=None):
     prepare = torch.no_grad()(prepare)
 
     def train_step(*args):
-        parts = prepare(*args)
+        with span("train/step.prepare"):
+            parts = prepare(*args)
         with _frames(layout and (lambda: layout(parts))):
             return _train_on(network, optimizer, lambda: value(parts))
 
     @torch.no_grad()
     def eval_step(*args):
         network.eval()
-        return value(prepare(*args))
+        with span("dev/step.prepare"):
+            parts = prepare(*args)
+        with span("dev/step.forward"):
+            return value(parts)
 
     return train_step, eval_step
 

@@ -40,13 +40,19 @@ from abnet3_torch.dataloader import (Batch, BankBatch, FrameBankBatch,
                                      MultimodalDataLoader, SplitBankBatch,
                                      prefetch_iterator)
 from abnet3_torch import dist as mesh_dist
-from abnet3_torch.profiling import stage_trace
+from abnet3_torch.profiling import span, stage_trace, waited
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import (jax_param_slots, jax_param_tree,
                                   load_jax_numpy, to_jax_numpy)
 
 __all__ = ["TrainerBuilder", "TrainerSiamese", "TrainerSiameseMultitask",
            "MultimodalTrainer", "build_optimizer", "MetricsWriter"]
+
+# spans (abnet3_torch.profiling): the wait for a batch, by the split the
+# pass reads; a step and its upload, by the step run (train or eval)
+_WAIT = {True: "train/loader.wait", False: "dev/loader.wait"}
+_STEP = {True: "train/step", False: "dev/step"}
+_UPLOAD = {True: "train/step.upload", False: "dev/step.upload"}
 
 
 def build_optimizer(optimizer_type: str, params, lr: float,
@@ -628,12 +634,28 @@ class TrainerSiamese(TrainerBuilder):
             args += (b.tcl_i1, b.tcl_i2, b.tcl_y, b.tcl_w)
         return self._upload(args)
 
+    #: the index in its pass of the batch that the next step runs (the
+    #: argument of its span); None outside a pass
+    _batch_index = None
+
     def _run_step(self, b, do_training: bool):
         """One train (or eval) step on one index batch; returns its loss
         as a 0-d device tensor."""
-        train_step, eval_step = self._steps_for(b)
-        step = train_step if do_training else eval_step
-        return step(*self._args_for(b))
+        with span(_STEP[do_training], self._batch_index):
+            train_step, eval_step = self._steps_for(b)
+            step = train_step if do_training else eval_step
+            with span(_UPLOAD[do_training]):
+                args = self._args_for(b)
+            return step(*args)
+
+    def _run_buffer(self, buf, do_training):
+        """The steps of a buffer of (index in the pass, batch), in
+        order."""
+        out = []
+        for i, x in buf:
+            self._batch_index = i
+            out.append(self._run_step(x, do_training))
+        return out
 
     def _give_buffered_batch(self, b, do_training):
         """Index batches accumulate into buffers of K = steps_per_call per
@@ -648,18 +670,18 @@ class TrainerSiamese(TrainerBuilder):
         key = (type(b).__name__, getattr(b, "bucket", None),
                getattr(b, "mode", None))
         buf = bufs.setdefault(key, [])
-        buf.append(b)
+        buf.append((self._batch_index, b))
         if len(buf) < K:
             return []
         bufs[key] = []
-        return [self._run_step(x, do_training) for x in buf]
+        return self._run_buffer(buf, do_training)
 
     def _flush_buffers(self, do_training):
         """Run the partial buffers left at pass end, keys in order of
         first appearance."""
         bufs = self._bufs[do_training]
-        out = [self._run_step(x, do_training)
-               for chunk in bufs.values() for x in chunk]
+        out = self._run_buffer([x for chunk in bufs.values() for x in chunk],
+                               do_training)
         bufs.clear()
         return out
 
@@ -678,9 +700,10 @@ class TrainerSiamese(TrainerBuilder):
             assert b.y_spk is not None, ("multitask training needs speaker "
                                          "labels (MultiTaskDataLoader)")
             args += (b.y_spk,)
-        return step(*(
-            [x.to(self.device) for x in t] if isinstance(t, (list, tuple))
-            else t.to(self.device) for t in args))
+        with span(_STEP[do_training], self._batch_index):
+            return step(*(
+                [x.to(self.device) for x in t] if isinstance(t, (list, tuple))
+                else t.to(self.device) for t in args))
 
     def give_batch_to_network(self, batch, do_training):
         """Run or buffer one batch; returns the per-batch losses of the
@@ -708,11 +731,16 @@ class TrainerSiamese(TrainerBuilder):
         return prefetch_iterator(batches, self.prefetch)
 
     def _pass(self, train_mode: bool, do_training: bool):
-        """Losses of one pass over a split's batches."""
+        """Losses of one pass over a split's batches; the wait for each
+        batch is the span ``train/loader.wait`` (``dev/`` in the dev
+        pass)."""
         losses = []
-        for batch in self._batches(train_mode):
+        batches = waited(self._batches(train_mode), _WAIT[train_mode])
+        for i, batch in enumerate(batches):
+            self._batch_index = i
             losses += self.give_batch_to_network(batch, do_training)
         losses += self._flush_buffers(do_training)
+        self._batch_index = None
         return losses
 
     # -- the fully on-device sampling path ----------------------------------

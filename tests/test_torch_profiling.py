@@ -54,3 +54,256 @@ def test_stage_trace_names_the_rank(monkeypatch, tmp_path):
     assert len(dirs) == 2
     assert sum(d.startswith("train-epoch-0-rank1-") for d in dirs) == 1
     assert sum("-rank" not in d for d in dirs) == 1
+
+
+# -- spans and counters -----------------------------------------------------
+
+import sys
+import threading
+import types
+
+import numpy as np
+import pytest
+
+from abnet3_torch import profiling
+
+
+@pytest.fixture
+def spans_on():
+    """Spans on for one test, then back to how they were."""
+    was = profiling._on
+    profiling.spans_on()
+    try:
+        yield
+    finally:
+        if not was:
+            profiling.spans_off()
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    """The profiling module's clock as a list of readings."""
+    readings = []
+    it = iter(readings)
+    monkeypatch.setattr(profiling, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(it)))
+    return readings
+
+
+def _since(before):
+    return profiling.totals_since(before, profiling.span_totals())
+
+
+def test_span_off_is_the_shared_no_op(monkeypatch):
+    """Off, span() returns one shared context, reads no clock, opens no
+    range and keeps nothing; count() keeps nothing either."""
+    assert not profiling._on
+    monkeypatch.setattr(profiling, "time", types.SimpleNamespace(
+        perf_counter=lambda: pytest.fail("the clock was read")))
+    before = profiling.span_totals()
+    assert profiling.span("t/a") is profiling.span("t/b", 3)
+    with torch.profiler.profile() as prof:
+        with profiling.span("t/a", 3):
+            torch.ones(4).sum()
+        profiling.count("t/bytes", 8)
+        assert list(profiling.waited([1, 2], "t/wait")) == [1, 2]
+    names = {e.name for e in prof.events()}
+    assert "aten::sum" in names
+    assert not names & {"t/a", "t/wait"}
+    assert _since(before) == {"spans": {}, "counters": {}}
+
+
+def test_nested_spans_count_total_and_self_time(spans_on, clock):
+    clock += [0.0, 1.0, 3.0, 6.0, 10.0, 10.5]
+    before = profiling.span_totals()
+    with profiling.span("t/outer"):
+        with profiling.span("t/inner", 0):
+            pass
+    with profiling.span("t/inner", 1):
+        pass
+    got = _since(before)["spans"]
+    assert got["t/outer"] == {"count": 1, "total_s": 6.0, "self_s": 4.0}
+    assert got["t/inner"] == {"count": 2, "total_s": 2.5, "self_s": 2.5}
+
+
+def test_spans_are_ranges_under_the_profiler(spans_on):
+    with torch.profiler.profile(record_shapes=True) as prof:
+        with profiling.span("t/outer"):
+            with profiling.span("t/inner", 7):
+                torch.ones(4).sum()
+    ev = {e.name: e for e in prof.events()}
+    outer, inner = ev["t/outer"].time_range, ev["t/inner"].time_range
+    assert outer.start <= inner.start and inner.end <= outer.end
+    # the batch index rides as the range's keyword argument
+    if hasattr(ev["t/inner"], "kwinputs"):
+        assert ev["t/inner"].kwinputs == {"index": 7}
+
+
+def test_spans_and_counts_from_threads_add_up(spans_on):
+    """Threads recording at once (as the prefetch worker and the main
+    thread do) lose no span and no count; each thread's self time is
+    its own."""
+    n_threads, n_each = 8, 400
+    before = profiling.span_totals()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(n_each):
+                with profiling.span("t/thread.outer"):
+                    with profiling.span("t/thread.inner"):
+                        profiling.count("t/thread.bytes", 3)
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    got = _since(before)
+    outer, inner = (got["spans"][f"t/thread.{k}"] for k in ("outer",
+                                                            "inner"))
+    assert outer["count"] == inner["count"] == n_threads * n_each
+    assert got["counters"]["t/thread.bytes"] == 3 * n_threads * n_each
+    assert outer["self_s"] == pytest.approx(
+        outer["total_s"] - inner["total_s"], abs=1e-9)
+    assert 0.0 <= outer["self_s"] <= outer["total_s"]
+
+
+def test_count_adds_up_while_on(spans_on):
+    before = profiling.span_totals()
+    profiling.count("t/count", 5)
+    profiling.count("t/count", 7)
+    profiling.spans_off()
+    profiling.count("t/count", 100)
+    profiling.spans_on()
+    assert _since(before)["counters"] == {"t/count": 12}
+
+
+def test_waited_counts_the_items_not_the_end(spans_on):
+    before = profiling.span_totals()
+    assert list(profiling.waited(iter("abc"), "t/wait")) == ["a", "b", "c"]
+    assert _since(before)["spans"]["t/wait"]["count"] == 3
+
+
+def test_stage_capture_writes_its_span_totals(monkeypatch, tmp_path):
+    """With ABNET3_PROFILE set after the import, a stage turns spans on
+    for itself and writes their totals as spans.json beside trace.json;
+    spans are off again after it."""
+    monkeypatch.setenv("ABNET3_PROFILE", str(tmp_path))
+    assert not profiling._on
+    def worker():
+        with profiling.span("t/worker"):
+            torch.ones(4).sum()
+    with stage_trace("stage-s"):
+        with profiling.span("t/in-stage"):
+            torch.ones(4).sum()
+        profiling.count("t/stage.bytes", 4)
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    assert not profiling._on
+    (d,) = os.listdir(tmp_path)
+    with open(tmp_path / d / "trace.json") as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    # the capture records every thread, as the loaders' prefetch worker
+    assert {"stage-s", "t/in-stage", "t/worker"} <= names
+    with open(tmp_path / d / "spans.json") as fh:
+        totals = json.load(fh)
+    assert totals["spans"]["stage-s"]["count"] == 1
+    assert totals["spans"]["t/in-stage"]["count"] == 1
+    assert totals["spans"]["t/worker"]["count"] == 1
+    assert totals["counters"] == {"t/stage.bytes": 4}
+    stage, inner = totals["spans"]["stage-s"], totals["spans"]["t/in-stage"]
+    assert stage["self_s"] == pytest.approx(
+        stage["total_s"] - inner["total_s"], abs=1e-9)
+
+
+# -- the trainer and its loader ---------------------------------------------
+
+def _corpus():
+    """4 files x 80 frames x 4 dims in memory; 6 train and 2 dev pairs."""
+    from abnet3_torch.utils import Features_Accessor
+    rng = np.random.RandomState(0)
+    items = [f"f{i}" for i in range(4)]
+    feats = {f: rng.randn(80, 4).astype(np.float32) for f in items}
+    times = {f: np.arange(80) * 0.01 + 0.0025 for f in items}
+    train = [("f0", 0.0, 0.12, "f1", 0.3, 0.39, "same"),
+             ("f1", 0.0, 0.2, "f2", 0.1, 0.25, "same"),
+             ("f2", 0.3, 0.5, "f3", 0.0, 0.08, "diff"),
+             ("f0", 0.4, 0.55, "f3", 0.2, 0.42, "diff"),
+             ("f3", 0.5, 0.62, "f0", 0.6, 0.7, "same"),
+             ("f1", 0.5, 0.58, "f2", 0.6, 0.75, "diff")]
+    dev = [("f0", 0.1, 0.2, "f2", 0.4, 0.52, "same"),
+           ("f1", 0.6, 0.7, "f3", 0.6, 0.72, "diff")]
+    return Features_Accessor(times, feats), {"train": train, "dev": dev}
+
+
+LOADERS = {"bank": dict(align_backend="bank", batch_size=2,
+                        num_max_minibatches=3, steps_per_call=2),
+           "device": dict(align_backend="device", batch_size=3,
+                          num_max_minibatches=2)}
+
+
+@pytest.mark.parametrize("prefetch", [2, 0])
+@pytest.mark.parametrize("backend", list(LOADERS))
+def test_trainer_epoch_spans_count_its_steps_and_batches(
+        spans_on, tmp_path, backend, prefetch):
+    from abnet3_torch.dataloader import OriginalDataLoader
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.models.siamese import SiameseNetwork
+    from abnet3_torch.trainer import TrainerSiamese
+    loader = OriginalDataLoader(None, None, seed=0, device="cpu",
+                                **LOADERS[backend])
+    loader.features, loader.pairs = _corpus()
+    loader.load_data()
+    net = SiameseNetwork(input_dim=4, num_hidden_layers=1, hidden_dim=8,
+                         output_dim=4, p_dropout=0.0, batch_norm=False,
+                         activation_layer="sigmoid", device="cpu")
+    trainer = TrainerSiamese(network=net, loss=coscos2(), dataloader=loader,
+                             optimizer_type="adadelta", lr=0.1, num_epochs=1,
+                             seed=0, device="cpu", cuda=False,
+                             log_dir=str(tmp_path), prefetch=prefetch)
+    # what train() starts with
+    trainer.train_losses, trainer.dev_losses = [], []
+    losses, batches = {}, {True: 0, False: 0}
+    run_pass, iterate = trainer._pass, loader.batch_iterator
+
+    def counted_pass(train_mode, do_training):
+        losses[train_mode] = run_pass(train_mode, do_training)
+        return losses[train_mode]
+
+    def counted_batches(train_mode=True):
+        for b in iterate(train_mode=train_mode):
+            batches[train_mode] += 1
+            yield b
+    trainer._pass, loader.batch_iterator = counted_pass, counted_batches
+    before = profiling.span_totals()
+    trainer.optimize_model(do_training=True)
+    got = _since(before)
+    spans, counters = got["spans"], got["counters"]
+    n_train, n_dev = len(losses[True]), len(losses[False])
+    assert n_train == batches[True] > 0 and n_dev == batches[False] > 0
+    assert spans["train/step"]["count"] == n_train
+    assert spans["dev/step"]["count"] == n_dev
+    assert spans["train/loader.wait"]["count"] == batches[True]
+    assert spans["dev/loader.wait"]["count"] == batches[False]
+    assert spans["train/loader.build"]["count"] == batches[True]
+    for part in ("forward", "backward", "optimizer"):
+        assert spans[f"train/step.{part}"]["count"] == n_train, part
+    assert spans["dev/step.forward"]["count"] == n_dev
+    step = spans["train/step"]
+    assert step["self_s"] < step["total_s"]
+    if backend == "bank":
+        # the split step's matrix mode: ids uploaded, frames prepared
+        for part in ("upload", "prepare"):
+            assert spans[f"train/step.{part}"]["count"] == n_train, part
+            assert spans[f"dev/step.{part}"]["count"] == n_dev, part
+        assert not counters
+    else:
+        for part in ("align", "walk", "gather"):
+            assert spans[f"train/loader.{part}"]["count"] > 0, part
+        assert counters["train/h2d_pageable_bytes"] > 0
+        assert counters["dev/h2d_pageable_bytes"] > 0
