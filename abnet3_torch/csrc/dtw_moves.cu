@@ -1,6 +1,7 @@
 // DTW forward DP for Hopper (sm_90a): the argmin move matrix (int8) or the
-// full cost tensor (float32), bound to PyTorch through a plain C interface
-// and ctypes (abnet3_torch/ops/cuda_dtw.py).
+// full cost tensor (float32); and the walk of a move matrix into index
+// paths (its own note, further down). Bound to PyTorch through a plain C
+// interface and ctypes (abnet3_torch/ops/cuda_dtw.py).
 //
 // Replaces two TPU kernels of abnet3_tpu/ops/pallas_dtw.py, which run the
 // same forward DP and differ only in what they store:
@@ -211,6 +212,166 @@ int launch_costs(const void* dist, void* out, int B, int T1, int T2,
 
 #undef DTW_STRIP_DISPATCH
 
+// ---------------------------------------------------------------------------
+// The walk of a move plane into index paths (walk_moves_launch).
+//
+// Replaces no Pallas kernel: the JAX package walks the moves with a
+// lax.scan (abnet3_tpu/ops/dtw.py:walk_moves, the scan at :229), which the
+// port ran as a Python loop of L = T1 + T2 - 1 steps of about 8 launches
+// each (ops/dtw.py walk_moves_plain, the plain version, kept). For each
+// pair b it gives what that loop gives: the walk starts at (n1-1, n2-1)
+// and runs L steps; a move code m steps back by (m >> 1, m & 1), each
+// coordinate clamped at 0, so (0, 0) absorbs it; path_len = L - (steps at
+// (0, 0)) + 1, which is L + 1 for a walk that never reaches it; and
+// path1/path2[t] is the step at clamp(path_len - 1 - t, 0, L - 1): the
+// path in increasing order, the endpoint repeated past path_len.
+//
+// What bounds it on an H100: not the bytes (the plane, B*T1*T2 int8, is
+// 1 MiB at (64, 128, 128), 0.3 us at 3.35 TB/s; the paths, 2*B*L int64,
+// 255 KiB) but the walk, a chain of dependent loads: each step loads the
+// move that the next step's address depends on, path_len steps a pair
+// (at most L = 255 at T = 128).
+//
+// Design: one warp per pair, as many pairs a block as the strip kernels
+// take (a batch of 64 is 64 blocks of one warp, one wave). The warp
+// stages the rows the walk can visit, rows 0 .. n1-1 (one contiguous span
+// of the plane), into shared memory with cp.async, 16 bytes a lane where
+// the span starts on 16 bytes (every power-of-two bucket of 4 and more),
+// else a byte a lane; so a step of the chain is a shared-memory load (~30
+// cycles) and not a trip to L2. Lane 0 walks and keeps the trail as
+// 32-bit words i << 16 | j in shared memory after the rows; it stops at
+// (0, 0), since the rest of the trail would be (0, 0) again. Then the 32
+// lanes write path1 and path2 in increasing order, coalesced, from the
+// trail. Where the rows and the trail do not fit a block's shared memory
+// (past ~230k cells, such as (1024, 1024)) the same code walks the plane
+// in place in global memory, the trail alone in shared memory; a trail
+// past the shared memory (L > 58,112) is refused. The moves are read as
+// unsigned bytes: for the codes 0..127 that is the loop's arithmetic; a
+// negative code, which no kernel writes, steps back by its byte's value
+// and the walk stays in the plane (the loop's gather would leave it).
+// Lengths are clamped into [1, T] (there too the loop would leave it).
+
+// the bytes of a warp's staged rows (the whole plane at most) and of its
+// trail (L words), each ending on 16
+__host__ __device__ inline size_t walk_plane_bytes(int T1, int T2) {
+  return (static_cast<size_t>(T1) * T2 + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t walk_trail_bytes(int T1, int T2) {
+  return (static_cast<size_t>(T1 + T2 - 1) * 4 + 15) / 16 * 16;
+}
+
+// n bytes from global to shared memory (dst on 16 bytes) by one warp:
+// every 16-byte copy requested before the first is waited for
+__device__ __forceinline__ void stage_rows(uint8_t* dst,
+                                           const uint8_t* __restrict__ src,
+                                           size_t n, int lane) {
+  size_t done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const unsigned base = dtw_strip::shared_address(dst);
+    const size_t vectors = n / 16;
+    for (size_t v = lane; v < vectors; v += 32)
+      dtw_strip::cp_async_16(base + static_cast<unsigned>(16 * v),
+                             reinterpret_cast<const float*>(src + 16 * v));
+    dtw_strip::cp_async_commit();
+    done = 16 * vectors;
+  }
+#pragma unroll 4
+  for (size_t k = done + lane; k < n; k += 32) dst[k] = __ldg(src + k);
+  dtw_strip::cp_async_wait<0>();
+  __syncwarp();
+}
+
+template <bool kStaged>
+__global__ void walk_moves_kernel(const uint8_t* __restrict__ moves,
+                                  const int* __restrict__ n1,
+                                  const int* __restrict__ n2,
+                                  long long* __restrict__ path1,
+                                  long long* __restrict__ path2,
+                                  long long* __restrict__ path_len, int B,
+                                  int T1, int T2, int warp_bytes) {
+  extern __shared__ __align__(16) uint8_t walk_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // the whole warp
+  const int L = T1 + T2 - 1;
+  const int i0 = min(max(n1[b], 1), T1) - 1;
+  const int j0 = min(max(n2[b], 1), T2) - 1;
+  uint8_t* mine = walk_smem + static_cast<size_t>(warp) * warp_bytes;
+  const uint8_t* plane = moves + static_cast<size_t>(b) * T1 * T2;
+  unsigned* trail = reinterpret_cast<unsigned*>(mine);
+  if constexpr (kStaged) {
+    stage_rows(mine, plane, static_cast<size_t>(i0 + 1) * T2, lane);
+    plane = mine;
+    trail = reinterpret_cast<unsigned*>(mine + walk_plane_bytes(T1, T2));
+  }
+
+  // the walk, by lane 0; i * T2 + j < T1 * T2 < 2^30 where the trail fits
+  int len = 0;
+  if (lane == 0) {
+    int i = i0, j = j0, s = 0;
+    for (;;) {
+      trail[s] = (static_cast<unsigned>(i) << 16) | static_cast<unsigned>(j);
+      if ((i | j) == 0) {
+        len = s + 1;
+        break;
+      }
+      if (++s == L) {
+        len = L + 1;
+        break;
+      }
+      unsigned m;
+      if constexpr (kStaged)
+        m = plane[i * T2 + j];
+      else
+        m = __ldg(plane + i * T2 + j);
+      i = max(i - static_cast<int>(m >> 1), 0);
+      j = max(j - static_cast<int>(m & 1u), 0);
+    }
+  }
+  len = __shfl_sync(dtw_strip::kFullMask, len, 0);
+  __syncwarp();  // the trail is in shared memory
+
+  const size_t row = static_cast<size_t>(b) * L;
+  for (int t = lane; t < L; t += 32) {
+    const unsigned c = trail[min(max(len - 1 - t, 0), L - 1)];
+    path1[row + t] = static_cast<long long>(c >> 16);
+    path2[row + t] = static_cast<long long>(c & 0xffffu);
+  }
+  if (lane == 0) path_len[b] = len;
+}
+
+int launch_walk(const void* moves, const void* n1, const void* n2,
+                void* path1, void* path2, void* path_len, int B, int T1,
+                int T2, void* stream) {
+  const size_t trail = walk_trail_bytes(T1, T2);
+  const size_t staged = walk_plane_bytes(T1, T2) + trail;
+  const bool in_smem = staged <= dtw_strip::kSmemLimit;
+  const size_t warp_bytes = in_smem ? staged : trail;
+  if (warp_bytes > dtw_strip::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int warps = 1;
+  while (warps < dtw_strip::kMaxWarps && warps * dtw_strip::kSMs < B)
+    warps *= 2;
+  while (warps > 1 && warps * warp_bytes > dtw_strip::kSmemLimit) warps /= 2;
+  const size_t smem = warps * warp_bytes;
+  auto kernel = in_smem ? &walk_moves_kernel<true> : &walk_moves_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<(B + warps - 1) / warps, 32 * warps, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(moves), static_cast<const int*>(n1),
+      static_cast<const int*>(n2), static_cast<long long*>(path1),
+      static_cast<long long*>(path2), static_cast<long long*>(path_len), B,
+      T1, T2, static_cast<int>(warp_bytes));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -227,6 +388,17 @@ int dtw_moves_launch(const void* dist, void* moves, int B, int T1, int T2,
 int dtw_costs_launch(const void* dist, void* costs, int B, int T1, int T2,
                      void* stream) {
   return launch_costs(dist, costs, B, T1, T2, stream);
+}
+
+// moves (B,T1,T2) int8, n1/n2 (B,) int32 -> path1, path2 (B, T1+T2-1)
+// int64 and path_len (B,) int64, all contiguous on the device. Launches on
+// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for a trail
+// past the shared memory).
+int walk_moves_launch(const void* moves, const void* n1, const void* n2,
+                      void* path1, void* path2, void* path_len, int B,
+                      int T1, int T2, void* stream) {
+  return launch_walk(moves, n1, n2, path1, path2, path_len, B, T1, T2,
+                     stream);
 }
 
 // The launch geometry of (B, T1, T2) as 10 ints (dtw_strip::Geometry, in

@@ -16,6 +16,13 @@ Four hand-written CUDA kernels, one for each TPU kernel of
   only an availability probe and the tests call it); it completes the
   set.
 
+A fifth, ``walk_moves_cuda`` (the same source, its third kernel),
+replaces no TPU kernel but the JAX package's ``lax.scan`` over the moves
+(``abnet3_tpu/ops/dtw.py`` ``walk_moves``): one launch walks every pair's
+moves back into index paths, where the plain version
+(:func:`abnet3_torch.ops.dtw.walk_moves_plain`) runs a Python loop of
+T1 + T2 - 1 steps.
+
 All four kernels run their forward DP on one warp-synchronous core,
 ``csrc/dtw_strip.cuh``: one warp per pair, each lane a strip of columns
 one row behind its left neighbour, the costs prefetched into a ring of
@@ -32,10 +39,11 @@ includes and the compiler flags, so an edit of any of them never loads a
 stale build), and loaded with ``ctypes``. :func:`build` compiles every
 missing library at once, one ``nvcc`` process per source.
 
-``dtw_path_plain``, ``dtw_path_stats_plain``, ``dtw_moves_plain`` and
-``dtw_costs_plain`` are the same functions in plain PyTorch; the CPU
-path and the tests use them, and ``chip_smoke.py`` holds each kernel
-against its plain version on the card. The dispatchers
+``dtw_path_plain``, ``dtw_path_stats_plain``, ``dtw_moves_plain``,
+``dtw_costs_plain`` and ``ops.dtw.walk_moves_plain`` are the same
+functions in plain PyTorch; the CPU path and the tests use them, and
+``chip_smoke.py`` holds each kernel against its plain version on the
+card. The dispatchers
 in :mod:`abnet3_torch.ops.dtw` pick between them by the tensor's device
 alone. Each wrapper counts its launches (``<wrapper>.launches``).
 """
@@ -60,7 +68,8 @@ from abnet3_torch.ops.dtw import (dtw_costs, moves_from_costs,
 __all__ = ["build", "library_path", "dtw_path_cuda", "dtw_path_plain",
            "dtw_path_stats_cuda", "dtw_path_stats_plain", "dtw_moves_cuda",
            "dtw_moves_plain", "dtw_costs_cuda", "dtw_costs_plain",
-           "SMEM_LIMIT", "StripGeometry", "strip_geometry", "source_files"]
+           "walk_moves_cuda", "SMEM_LIMIT", "StripGeometry",
+           "strip_geometry", "source_files"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -86,6 +95,7 @@ _EXPORTS = {
     "dtw_moves": {
         "dtw_moves_launch": ([_P, _P] + [_I] * 3 + [_P], _I),
         "dtw_costs_launch": ([_P, _P] + [_I] * 3 + [_P], _I),
+        "walk_moves_launch": ([_P] * 6 + [_I] * 3 + [_P], _I),
         "dtw_moves_geometry": ([_I] * 3 + [_P], None),
     },
 }
@@ -269,8 +279,6 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -278,6 +286,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
 def _check_lengths(dist: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor,
@@ -481,3 +491,43 @@ dtw_costs_cuda.launches = 0
 def dtw_costs_plain(dist: torch.Tensor) -> torch.Tensor:
     """The cost kernel's function in plain PyTorch, on any device."""
     return dtw_costs(dist)
+
+
+def walk_moves_cuda(move: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the walk kernel: move (B, T1, T2) int8, n1/n2 (B,) int32,
+    all contiguous on one CUDA device -> (path1, path2, path_len): paths
+    (B, T1+T2-1) and lengths (B,), int64, those of :func:`walk_moves_plain`
+    bit for bit. Raises where the walk's trail, 4 bytes a step, would not
+    fit a block's shared memory (T1 + T2 - 1 > 58,112).
+    ``walk_moves_cuda.launches`` counts the launches."""
+    if move.dim() != 3:
+        raise ValueError(f"move must be (B, T1, T2), got {tuple(move.shape)}")
+    B, T1, T2 = move.shape
+    _check(move, "move", torch.int8, (B, T1, T2))
+    _check_lengths(move, n1, n2, B)
+    if T1 == 0 or T2 == 0:
+        raise ValueError(f"move has an empty plane {tuple(move.shape)}")
+    L = T1 + T2 - 1
+    if 4 * L > SMEM_LIMIT:
+        raise ValueError(f"T1 + T2 - 1 = {L} exceeds the shared memory of "
+                         "the walk's trail")
+    lib = _lib("dtw_moves")
+    path1, path2 = (torch.empty((B, L), dtype=torch.int64, device=move.device)
+                    for _ in range(2))
+    path_len = torch.empty(B, dtype=torch.int64, device=move.device)
+    if B == 0:
+        return path1, path2, path_len
+    with torch.cuda.device(move.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.walk_moves_launch(
+            move.data_ptr(), n1.data_ptr(), n2.data_ptr(), path1.data_ptr(),
+            path2.data_ptr(), path_len.data_ptr(), B, T1, T2, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"walk_moves kernel launch failed: CUDA error {err}")
+    walk_moves_cuda.launches += 1
+    return path1, path2, path_len
+
+
+walk_moves_cuda.launches = 0

@@ -20,7 +20,9 @@ step:
    to the hand-written kernels (:mod:`abnet3_torch.ops.cuda_dtw`), a CPU
    tensor to their plain twins.
 4. The gather path: :func:`walk_moves` walks each pair's moves back from
-   its endpoint into index paths, :func:`dtw_align_from_dist` and
+   its endpoint into index paths (a CUDA tensor runs the hand-written
+   walk kernel, one launch for the batch; a CPU tensor the plain loop,
+   :func:`walk_moves_plain`), :func:`dtw_align_from_dist` and
    :func:`dtw_align_batch` chain distances, moves and walk, and
    :func:`gather_aligned` picks the aligned frames.
 
@@ -47,9 +49,9 @@ __all__ = ["pairwise_angular_distance", "unit_frames",
            "pairwise_kl_distance", "anchor_kl_distance_rows", "dtw_costs",
            "moves_from_costs", "onpath_from_moves", "dtw_path_from_dist",
            "dtw_path_stats", "dtw_path_stats_rows", "dtw_moves_auto",
-           "walk_moves", "dtw_backtrace", "dtw_align_from_dist",
-           "dtw_align_batch", "gather_aligned", "align_diff_batch",
-           "aligned_frame_pairs"]
+           "walk_moves", "walk_moves_plain", "dtw_backtrace",
+           "dtw_align_from_dist", "dtw_align_batch", "gather_aligned",
+           "align_diff_batch", "aligned_frame_pairs"]
 
 # the "no neighbour" cost of the boundary cells, as in the JAX package
 _BIG = 1e30
@@ -336,11 +338,28 @@ def walk_moves(move: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
     move (B, T1, T2) as produced by :func:`moves_from_costs`; n1, n2 (B,)
     true lengths. Returns (path1, path2, path_len): paths (B, L) int64
     with L = T1+T2-1 in increasing order, padded past path_len by
-    repeating the endpoint, as the JAX package's ``walk_moves``. One step
-    per loop iteration for all B pairs at once; a coordinate that a move
-    would take below 0 stays at 0, so the walk rests at (0, 0). A move
-    code m steps back (m >> 1, m & 1): 1 = left (0, 1), 2 = up (1, 0),
-    3 = diag (1, 1). Nothing is read back to the host."""
+    repeating the endpoint, as the JAX package's ``walk_moves``. A CUDA
+    tensor runs the hand-written walk kernel (one launch, int8 moves read
+    in place), a CPU tensor the plain loop, :func:`walk_moves_plain`; the
+    two give the same integers."""
+    from abnet3_torch.ops import cuda_dtw
+    if move.is_cuda:
+        dev = move.device
+        return cuda_dtw.walk_moves_cuda(
+            move.to(torch.int8).contiguous(),
+            n1.to(dev, torch.int32).contiguous(),
+            n2.to(dev, torch.int32).contiguous())
+    return walk_moves_plain(move, n1, n2)
+
+
+def walk_moves_plain(move: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The walk kernel's function in plain PyTorch, on any device: one
+    step per loop iteration for all B pairs at once, L = T1+T2-1 of them;
+    a coordinate that a move would take below 0 stays at 0, so the walk
+    rests at (0, 0). A move code m steps back (m >> 1, m & 1): 1 = left
+    (0, 1), 2 = up (1, 0), 3 = diag (1, 1). Nothing is read back to the
+    host."""
     B, T1, T2 = move.shape
     L = T1 + T2 - 1
     dev = move.device

@@ -2,6 +2,7 @@
 sources against each other in one process on one card.
 
     python -m abnet3_torch.ops.kernel_bench --old-csrc DIR [--reps 100]
+    python -m abnet3_torch.ops.kernel_bench --walk [--reps 100]
 
 ``DIR`` holds another version of ``dtw_moves.cu``, ``dtw_path_stats.cu``,
 ``dtw_path.cu`` and the headers they include (say, the
@@ -15,6 +16,12 @@ that together exceed the 50 MB L2 several times), and by a CUDA graph of
 the launches replayed between two events (``graph_ms``). The outputs of the two
 versions must be equal bit for bit. One JSON line per measurement, then
 the card's name and power limit as nvidia-smi reports them.
+
+``--walk`` times the walk kernel (``walk_moves_cuda``, which has no
+earlier version) at the gather path's buckets instead: ``device_ms``
+L2-warm and L2-cold, ``wrapper_ms`` by events, and the plain loop it
+replaced (``walk_moves_plain``) by events, with the outputs of the two
+equal bit for bit.
 
 :func:`cuda_time_ms` and :func:`device_time_ms` are the two timers;
 ``chip_smoke.py`` uses them for its ``wrapper_ms`` and ``device_ms``.
@@ -40,7 +47,7 @@ import torch
 from abnet3_torch.ops import cuda_dtw
 
 __all__ = ["cuda_time_ms", "device_time_ms", "graph_time_ms", "cold_copies",
-           "main"]
+           "time_walk", "main"]
 
 #: bytes a rotation of inputs must exceed for a launch to find none of its
 #: input in the 50 MB L2
@@ -152,7 +159,7 @@ def _compile(csrc: str) -> Dict[str, ctypes.CDLL]:
                             out, src], check=True)
         lib = ctypes.CDLL(out)
         for fn, (argtypes, restype) in cuda_dtw._EXPORTS[name].items():
-            if fn.endswith("_launch"):
+            if fn.endswith("_launch") and hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
         libs[name] = lib
@@ -255,17 +262,58 @@ def _time_versions(kernel, shape, versions, run, inputs, reps):
                "copies": len(inputs), "reps": reps})
 
 
+def time_walk(gen, reps):
+    """The walk kernel against the plain loop at (64, 128, 128) and (64,
+    96, 96): the move kernel's planes of angular distances between random
+    frames, lengths of 20-96 frames (the corpus's words)."""
+    from abnet3_torch.ops.dtw import walk_moves_plain
+    walk = cuda_dtw.walk_moves_cuda
+    for B, T in ((64, 128), (64, 96)):
+        moves = cold_copies(cuda_dtw.dtw_moves_cuda(_angular(gen, B, T, T)))
+        n1, n2 = (torch.randint(20, min(96, T) + 1, (B,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+                  for _ in range(2))
+        got = walk(moves[0], n1, n2)
+        for a, b in zip(got, walk_moves_plain(moves[0], n1, n2)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"walk_moves: kernel and plain loop "
+                                     f"differ at {(B, T, T)}")
+        L = 2 * T - 1
+        _emit({"kernel": "walk_moves", "shape": [B, T, T],
+               "device_ms": device_time_ms(
+                   lambda i: walk(moves[0], n1, n2), "walk_moves", reps),
+               "device_cold_ms": device_time_ms(
+                   lambda i: walk(moves[i % len(moves)], n1, n2),
+                   "walk_moves", reps),
+               "wrapper_ms": cuda_time_ms(lambda: walk(moves[0], n1, n2),
+                                          reps),
+               "plain_ms": cuda_time_ms(
+                   lambda: walk_moves_plain(moves[0], n1, n2), 10, 1),
+               "mean_path_len": float(got[2].float().mean()),
+               "max_path_len": int(got[2].max()),
+               "plane_bytes": B * T * T, "needed_plane_bytes": int(
+                   n1.long().sum()) * T, "out_bytes": 8 * B * (2 * L + 1),
+               "copies": len(moves), "reps": reps})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--old-csrc", required=True,
+    parser.add_argument("--old-csrc",
                         help="directory of the other version's sources")
+    parser.add_argument("--walk", action="store_true",
+                        help="time the walk kernel against its plain loop")
     parser.add_argument("--reps", type=int, default=100)
     args = parser.parse_args(argv)
+    if not (args.walk or args.old_csrc):
+        parser.error("give --old-csrc DIR or --walk")
     if not torch.cuda.is_available():
         print("kernel_bench: CUDA is not available", file=sys.stderr)
         return 1
-    libs = {"old": _compile(args.old_csrc), "new": _compile(cuda_dtw.CSRC)}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.walk:
+        time_walk(gen, args.reps)
+        return _print_card()
+    libs = {"old": _compile(args.old_csrc), "new": _compile(cuda_dtw.CSRC)}
 
     for B, T in ((32, 128), (64, 96)):
         dists = cold_copies(_angular(gen, B, T, T))
@@ -311,6 +359,11 @@ def main(argv=None):
            int((n1.long() * n2.long()).sum()) * 4})
     _time_versions("dtw_path_stats", (T, B, T), versions,
                    lambda launch, r: launch(r, n1, n2, out), rows, args.reps)
+    return _print_card()
+
+
+def _print_card():
+    """Print the card's name and power limit; returns 0."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

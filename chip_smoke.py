@@ -32,7 +32,8 @@ Phases, each printing JSON lines:
    37 and 100, B = 1 and 1,025, every strip width and the first width
    past the widest strip, on angular and tie-heavy integer inputs with
    ragged lengths (1 and T among them): the int8 moves must be exactly
-   equal, the walked path
+   equal, the walk kernel's paths and lengths equal to the plain loop's,
+   the walked path
    lengths equal to the path kernel's mask sums, and every walked cell on
    that mask;
 6. kernel_costs: the CUDA DTW cost kernel against its plain version on
@@ -528,10 +529,11 @@ def forward_inputs(gen, kind, B, T1, T2):
 
 def phase_kernel_moves():
     """The move kernel against its plain version, exactly; the walk of
-    its moves against the path kernel's mask."""
+    its moves, by the walk kernel, against the plain loop (exactly) and
+    against the path kernel's mask."""
     from abnet3_torch.ops.cuda_dtw import (dtw_moves_cuda, dtw_moves_plain,
-                                           dtw_path_cuda)
-    from abnet3_torch.ops.dtw import walk_moves
+                                           dtw_path_cuda, walk_moves_cuda)
+    from abnet3_torch.ops.dtw import walk_moves, walk_moves_plain
     gen = torch.Generator().manual_seed(3)
     max_err = 0
     for kind, B, T1, T2 in FORWARD_CASES:
@@ -540,7 +542,11 @@ def phase_kernel_moves():
         plain = dtw_moves_plain(dist)
         torch.cuda.synchronize()
         err = int((mv.int() - plain.int()).abs().max())
+        walks = walk_moves_cuda.launches
         p1, p2, plen = walk_moves(mv, n1, n2)
+        walk_equal = walk_moves_cuda.launches == walks + 1 and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in
+            zip((p1, p2, plen), walk_moves_plain(mv, n1, n2)))
         A = dtw_path_cuda(dist, n1, n2)
         plen_equal = torch.equal(plen, A.sum((1, 2)).long())
         steps = torch.arange(p1.shape[1], device="cuda")[None, :]
@@ -548,7 +554,7 @@ def phase_kernel_moves():
         on_path = bool((on_mask[steps < plen[:, None]] == 1).all())
         emit({"phase": "kernel_moves", "input": kind, "shape": [B, T1, T2],
               "max_abs_diff": err, "plen_equal_mask_sum": plen_equal,
-              "walk_on_mask": on_path,
+              "walk_on_mask": on_path, "walk_kernel_equal_plain": walk_equal,
               "mean_path_len": float(plen.float().mean())})
         if not torch.equal(mv, plain):
             raise AssertionError(f"move kernel differs from the plain "
@@ -556,6 +562,9 @@ def phase_kernel_moves():
         if not (plen_equal and on_path):
             raise AssertionError(f"walked paths leave the path mask at "
                                  f"{kind} {(B, T1, T2)}")
+        if not walk_equal:
+            raise AssertionError(f"the walk kernel differs from the plain "
+                                 f"loop at {kind} {(B, T1, T2)}")
         max_err = max(max_err, err)
     return max_err
 
@@ -890,7 +899,8 @@ def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
     from abnet3_torch.ops import cuda_dtw
     for fn in (cuda_dtw.dtw_path_cuda, cuda_dtw.dtw_path_stats_cuda,
-               cuda_dtw.dtw_moves_cuda, cuda_dtw.dtw_costs_cuda):
+               cuda_dtw.dtw_moves_cuda, cuda_dtw.dtw_costs_cuda,
+               cuda_dtw.walk_moves_cuda):
         fn.launches = 0
 
 
@@ -923,7 +933,8 @@ def phase_gather_path(main_trainer, main_loader):
     from abnet3_torch.dataloader import OriginalDataLoader, _pad_tokens
     from abnet3_torch.loss import coscos2
     from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_moves_cuda,
-                                           dtw_moves_plain, dtw_path_cuda)
+                                           dtw_moves_plain, dtw_path_cuda,
+                                           walk_moves_cuda)
     from abnet3_torch.ops.dtw import pairwise_angular_distance
     from abnet3_torch.parallel import make_split_pair_train_step
     from abnet3_torch.trainer import TrainerSiamese, build_optimizer
@@ -958,6 +969,7 @@ def phase_gather_path(main_trainer, main_loader):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dtw_moves_cuda.launches
+    walk_launches = walk_moves_cuda.launches
     path_launches = dtw_path_cuda.launches
     costs_launches = dtw_costs_cuda.launches
     loader._collect_pair_feats = collect
@@ -966,9 +978,11 @@ def phase_gather_path(main_trainer, main_loader):
         raise AssertionError(f"non-finite gather-path losses {losses}")
     if len(trainer.train_losses) != 3:
         raise AssertionError("expected the epoch-0 eval plus 2 epochs")
-    if launches != groups["same"] or launches == 0:
-        raise AssertionError(f"{launches} move-kernel launches for "
-                             f"{groups['same']} same-pair groups")
+    if launches != groups["same"] or launches == 0 or \
+            walk_launches != launches:
+        raise AssertionError(f"{launches} move-kernel and {walk_launches} "
+                             f"walk launches for {groups['same']} same-pair "
+                             "groups")
 
     # one train step on the card against the CPU path: the same 64 dev
     # pairs assembled by the device backend on each device, the same
@@ -1017,9 +1031,11 @@ def phase_gather_path(main_trainer, main_loader):
         bank_losses.append(float(step(*main_trainer._args_for(b))))
     bank_launches = dtw_moves_cuda.launches
     if bank_launches != len(batches) or not all(
-            math.isfinite(v) for v in bank_losses):
+            math.isfinite(v) for v in bank_losses) or \
+            walk_moves_cuda.launches != bank_launches:
         raise AssertionError(f"bank gather steps: {bank_launches} launches "
-                             f"for {len(batches)} steps, {bank_losses}")
+                             f"({walk_moves_cuda.launches} walks) for "
+                             f"{len(batches)} steps, {bank_losses}")
     # gather mode against matrix mode on one batch (p_dropout 0): the
     # eval losses, and the train losses of two copies of the network
     b = batches[-1]
@@ -1039,7 +1055,8 @@ def phase_gather_path(main_trainer, main_loader):
                                  f"{modes[True]}")
     emit({"phase": "gather_path", "backend": "device",
           "batches": groups["batches"], "same_groups": groups["same"],
-          "moves_launches": launches, "path_launches": path_launches,
+          "moves_launches": launches, "walk_launches": walk_launches,
+          "path_launches": path_launches,
           "costs_launches": costs_launches,
           "train_losses": trainer.train_losses,
           "dev_losses": trainer.dev_losses,
@@ -1062,7 +1079,17 @@ def launch_counts():
     from abnet3_torch.ops import cuda_dtw
     return {name: getattr(cuda_dtw, name + "_cuda").launches
             for name in ("dtw_path", "dtw_path_stats", "dtw_moves",
-                         "dtw_costs")}
+                         "dtw_costs", "walk_moves")}
+
+
+def expected_launches(counts):
+    """``counts`` completed to every key of :func:`launch_counts`: 0 for
+    a kernel it leaves out, and the walk's count equal to the move
+    kernel's (every path of the port walks each move plane once)."""
+    out = dict({"dtw_path": 0, "dtw_path_stats": 0, "dtw_moves": 0,
+                "dtw_costs": 0}, **counts)
+    out.setdefault("walk_moves", out["dtw_moves"])
+    return out
 
 
 def loader_trainer(loader, name, matrix_loss=None, num_epochs=1,
@@ -1125,8 +1152,7 @@ def run_loader_path(name, trainer, counts, predict, before=None):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
-    predicted = dict({"dtw_path": 0, "dtw_path_stats": 0, "dtw_moves": 0,
-                      "dtw_costs": 0}, **predict(counts))
+    predicted = expected_launches(predict(counts))
     losses = trainer.train_losses + trainer.dev_losses
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{name}: non-finite losses {losses}")
@@ -1420,8 +1446,7 @@ def phase_loaders_path(features, pairs, tokens, main_loader):
     device_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
     n_same = sum(1 for _ in grouped["same"])
-    if launches != {"dtw_path": 0, "dtw_path_stats": 0,
-                    "dtw_moves": 1 if n_same else 0, "dtw_costs": 0}:
+    if launches != expected_launches({"dtw_moves": 1 if n_same else 0}):
         raise AssertionError(f"host/device twin launches {launches}")
     cost_host = float(angular_rows(hb.x1, hb.x2)[hb.y > 0].sum())
     w_same = db.weights * (db.y > 0)
@@ -1667,8 +1692,7 @@ def run_sampled(trainer, counts, kernel):
     launches = launch_counts()
     K = trainer.dataloader.steps_per_call
     steps = K * (counts["train_calls"] + counts["eval_calls"])
-    predicted = dict({"dtw_path": 0, "dtw_path_stats": 0, "dtw_moves": 0,
-                      "dtw_costs": 0}, **{kernel: steps})
+    predicted = expected_launches({kernel: steps})
     losses = trainer.train_losses + trainer.dev_losses
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"sampled path: non-finite losses {losses}")
@@ -1874,8 +1898,7 @@ def run_counted(trainer, predicted, name):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
-    want = dict({"dtw_path": 0, "dtw_path_stats": 0, "dtw_moves": 0,
-                 "dtw_costs": 0}, **predicted)
+    want = expected_launches(predicted)
     losses = trainer.train_losses + trainer.dev_losses
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"multitask {name}: non-finite losses {losses}")
@@ -3136,8 +3159,8 @@ def phase_multimodal_path(features, pairs, wav_paths, n_classes=128,
     if not math.isfinite(score["error"]) or score["n_cells"] == 0:
         raise AssertionError(f"multimodal ABX score {score}")
     launches = launch_counts()
-    want = {"dtw_path": 0, "dtw_path_stats": tile_rows,
-            "dtw_moves": predicted, "dtw_costs": 0}
+    want = expected_launches({"dtw_path_stats": tile_rows,
+                              "dtw_moves": predicted})
     if launches != want:
         raise AssertionError(f"multimodal launches {launches}, predicted "
                              f"{want} (same pairs {n_same})")
@@ -3260,7 +3283,8 @@ def phase_bf16_path(features, pairs):
     from abnet3_torch.nn import bf16_matmul, bf16_matmul_plain
     from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_path_cuda,
                                            dtw_moves_cuda,
-                                           dtw_path_stats_cuda)
+                                           dtw_path_stats_cuda,
+                                           walk_moves_cuda)
     from abnet3_torch.weights import to_jax_numpy
     gen = torch.Generator().manual_seed(13)
     products = []
@@ -3314,7 +3338,7 @@ def phase_bf16_path(features, pairs):
     card_s = time.perf_counter() - t0
     launches = dtw_path_cuda.launches
     others = (dtw_moves_cuda.launches, dtw_path_stats_cuda.launches,
-              dtw_costs_cuda.launches)
+              dtw_costs_cuda.launches, walk_moves_cuda.launches)
     if launches != steps or launches == 0 or any(others):
         raise AssertionError(f"bf16 path: dtw_path {launches} for {steps} "
                              f"steps, the others {others}")
@@ -3426,7 +3450,8 @@ def mesh_workload(features, pairs, weights, inventory, mesh, out):
     from abnet3_torch.ops.bank import TokenBank
     from abnet3_torch.weights import load_jax_numpy, to_jax_numpy
     kernels = (cuda_dtw.dtw_path_cuda, cuda_dtw.dtw_moves_cuda,
-               cuda_dtw.dtw_path_stats_cuda, cuda_dtw.dtw_costs_cuda)
+               cuda_dtw.dtw_path_stats_cuda, cuda_dtw.dtw_costs_cuda,
+               cuda_dtw.walk_moves_cuda)
     reset_launches()
     t0 = time.perf_counter()
     matrix, steps = short_trainer(features, pairs, weights,
@@ -3505,10 +3530,12 @@ def mesh_rank_main(rank, world, store, out_dir):
 def predicted_launches(run, n_data, tiles, block):
     """Per-rank launches of one ``mesh_workload``: ``dtw_path`` once a
     matrix step, ``dtw_moves`` once a gather step (each rank runs every
-    step on its block of the pairs), ``dtw_path_stats`` once a row of
-    its block of each upper tile's rows, ``dtw_costs`` never."""
-    return {"dtw_path": run["steps"], "dtw_moves": run["gather_steps"],
-            "dtw_path_stats": tiles * block // n_data, "dtw_costs": 0}
+    step on its block of the pairs) and so the walk, ``dtw_path_stats``
+    once a row of its block of each upper tile's rows, ``dtw_costs``
+    never."""
+    return expected_launches({"dtw_path": run["steps"],
+                              "dtw_moves": run["gather_steps"],
+                              "dtw_path_stats": tiles * block // n_data})
 
 
 def phase_mesh_path(features, pairs, network, n_classes=128, tiles=10,
@@ -3558,8 +3585,7 @@ def phase_mesh_path(features, pairs, network, n_classes=128, tiles=10,
     weights = to_jax_numpy(flagship_network_seeded())
     out = os.path.join(OUT, "mesh")
     os.makedirs(out, exist_ok=True)
-    total = {"dtw_path": 0, "dtw_moves": 0, "dtw_path_stats": 0,
-             "dtw_costs": 0}
+    total = expected_launches({})
 
     # (a) world size 1 on NCCL
     plain = mesh_workload(features, pairs, weights, inventory, None,
@@ -3827,12 +3853,13 @@ def forward_bound(B, T1, T2, out_bytes, ops_per_cell):
 
 def phase_timing_gather(trainer, loader):
     """The move and cost kernels' device and wrapper times and their
-    plain versions'; CUDA-event times of ``walk_moves``, of one
-    device-backend batch build and of one gather-path train step."""
+    plain versions'; CUDA-event times of ``walk_moves`` (the walk
+    kernel) and of its plain loop, of one device-backend batch build and
+    of one gather-path train step."""
     from abnet3_torch.ops.cuda_dtw import (dtw_costs_cuda, dtw_costs_plain,
                                            dtw_moves_cuda, dtw_moves_plain,
                                            strip_geometry)
-    from abnet3_torch.ops.dtw import walk_moves
+    from abnet3_torch.ops.dtw import walk_moves, walk_moves_plain
     from abnet3_torch.ops.kernel_bench import cold_copies
     from abnet3_torch.utils import group_pairs
     gen = torch.Generator().manual_seed(5)
@@ -3863,6 +3890,9 @@ def phase_timing_gather(trainer, loader):
             walk_ms = cuda_time_ms(lambda: walk_moves(mv, n1, n2), reps=20,
                                    warmup=2)
             emit({"phase": "timing", "walk_moves_ms": walk_ms,
+                  "walk_moves_plain_ms": cuda_time_ms(
+                      lambda: walk_moves_plain(mv, n1, n2), reps=5,
+                      warmup=1),
                   "shape": [B, T, T], "steps": 2 * T - 1})
     grouped = group_pairs(loader.pairs["train"][:64])
 
@@ -4090,6 +4120,12 @@ def main():
     if costs_launches != 0:
         raise AssertionError(f"the cost kernel ran {costs_launches} times "
                              "on the paths, which do not use it")
+    # every path phase requires the walk's count to equal the move
+    # kernel's (expected_launches, the gather path's own checks)
+    emit({"kernel": "walk_moves", "source": "abnet3_torch/csrc/dtw_moves.cu",
+          "replaces": "abnet3_tpu/ops/dtw.py:229 (lax.scan)",
+          "launches": sum(moves_by_path.values()),
+          "launches_by_path": moves_by_path})
     phase_gridsearch(os.path.dirname(wav_paths[0]), classes, spk)
     rows, run_step = phase_timing(trainer, loader)
     fwd_rows, _ = phase_timing_gather(g_trainer, g_loader)

@@ -207,9 +207,9 @@ FORWARD_SHAPES = [(32, 128, 128), (64, 96, 96), (7, 40, 72), (5, 72, 40),
 @pytest.mark.parametrize("kind", ["angular", "ties"])
 @pytest.mark.parametrize("shape", FORWARD_SHAPES)
 def test_dtw_moves_kernel_matches_plain(cuda_device, kind, shape):
-    """int8 moves bit-equal; the walk of the moves covers exactly the
-    path kernel's mask."""
-    from abnet3_torch.ops.dtw import walk_moves
+    """int8 moves bit-equal; the walk of the moves, by the kernel and by
+    the plain loop alike, covers exactly the path kernel's mask."""
+    from abnet3_torch.ops.dtw import walk_moves, walk_moves_plain
     dist, n1, n2 = _inputs(kind, shape, cuda_device)
     before = cuda_dtw.dtw_moves_cuda.launches
     mv = cuda_dtw.dtw_moves_cuda(dist)
@@ -218,6 +218,7 @@ def test_dtw_moves_kernel_matches_plain(cuda_device, kind, shape):
     assert mv.dtype == torch.int8
     assert torch.equal(mv, cuda_dtw.dtw_moves_plain(dist))
     p1, p2, plen = walk_moves(mv, n1, n2)
+    _assert_walks_equal((p1, p2, plen), walk_moves_plain(mv, n1, n2))
     A = cuda_dtw.dtw_path_cuda(dist, n1, n2)
     assert torch.equal(plen, A.sum((1, 2)).long())
     steps = torch.arange(p1.shape[1], device=cuda_device)[None, :]
@@ -261,6 +262,106 @@ def test_align_dispatcher_launches_move_kernel_on_card(cuda_device):
     cpu = dtw_align_from_dist(dist.cpu(), n1.cpu(), n2.cpu())
     for a, b in zip(card, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+def _assert_walks_equal(got, want):
+    """(path1, path2, path_len) equal bit for bit, dtypes included."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def _walk_inputs(kind, shape, device, seed=8):
+    """A move plane and ragged lengths (the full T first, then 1): the
+    move kernel's planes of angular or tie-heavy costs, or uniformly
+    random codes 0-3, which clamp at row and column 0 and may stay put
+    (walks that never reach the origin)."""
+    dist, n1, n2 = _inputs("ties" if kind == "ties" else "angular", shape,
+                           device, seed)
+    if kind == "codes":
+        g = torch.Generator().manual_seed(seed)
+        mv = torch.randint(0, 4, shape, generator=g).to(torch.int8)
+        return mv.to(device), n1, n2
+    return cuda_dtw.dtw_moves_cuda(dist), n1, n2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["angular", "ties", "codes"])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES)
+def test_walk_kernel_matches_plain(cuda_device, kind, shape):
+    """The walk kernel against the plain loop, bit for bit, one launch a
+    call; (2, 1024, 1024) walks from global memory."""
+    from abnet3_torch.ops.dtw import walk_moves_plain
+    mv, n1, n2 = _walk_inputs(kind, shape, cuda_device)
+    before = cuda_dtw.walk_moves_cuda.launches
+    got = cuda_dtw.walk_moves_cuda(mv, n1, n2)
+    torch.cuda.synchronize()
+    assert cuda_dtw.walk_moves_cuda.launches == before + 1
+    assert got[0].dtype == torch.int64
+    _assert_walks_equal(got, walk_moves_plain(mv, n1, n2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["angular", "codes"])
+@pytest.mark.parametrize("shape", [(4, 128, 128), (4, 40, 72), (4, 33, 1),
+                                   (4, 1, 20), (4, 1024, 1024)])
+def test_walk_kernel_lengths_at_1_and_T(cuda_device, kind, shape):
+    """Each pair of lengths (1, 1), (1, T2), (T1, 1) and (T1, T2)."""
+    from abnet3_torch.ops.dtw import walk_moves_plain
+    mv, _, _ = _walk_inputs(kind, shape, cuda_device)
+    T1, T2 = shape[1:]
+    n1 = torch.tensor([1, 1, T1, T1], dtype=torch.int32, device=cuda_device)
+    n2 = torch.tensor([1, T2, 1, T2], dtype=torch.int32, device=cuda_device)
+    got = cuda_dtw.walk_moves_cuda(mv, n1, n2)
+    torch.cuda.synchronize()
+    _assert_walks_equal(got, walk_moves_plain(mv, n1, n2))
+    assert int(got[2][0]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["angular", "codes"])
+@pytest.mark.parametrize("shape", [(3, 300, 500), (2, 470, 470),
+                                   (2, 480, 480), (2, 129, 2000)])
+def test_walk_kernel_around_the_shared_memory_budget(cuda_device, kind,
+                                                     shape):
+    """Planes staged in shared memory past 48 KB ((300, 500), (470,
+    470): rows and trail within 227 KB) and planes walked in place from
+    global memory ((480, 480), (129, 2000): past it)."""
+    from abnet3_torch.ops.dtw import walk_moves_plain
+    mv, n1, n2 = _walk_inputs(kind, shape, cuda_device)
+    got = cuda_dtw.walk_moves_cuda(mv, n1, n2)
+    torch.cuda.synchronize()
+    _assert_walks_equal(got, walk_moves_plain(mv, n1, n2))
+
+
+@pytest.mark.cuda
+def test_walk_dispatcher_launches_kernel_on_card(cuda_device, monkeypatch):
+    """walk_moves on a CUDA tensor is one launch of the kernel and never
+    enters the plain loop, whatever the lengths' dtype and device; so is
+    the walk of dtw_align_from_dist."""
+    from abnet3_torch.ops import dtw
+    dist, n1, n2 = _inputs("angular", (6, 20, 28), cuda_device)
+    mv = cuda_dtw.dtw_moves_cuda(dist)
+    want = dtw.walk_moves_plain(mv, n1, n2)
+
+    def plain(*args):
+        raise AssertionError("the plain loop ran on a CUDA tensor")
+    monkeypatch.setattr(dtw, "walk_moves_plain", plain)
+    before = cuda_dtw.walk_moves_cuda.launches
+    _assert_walks_equal(dtw.walk_moves(mv, n1.long(), n2.cpu()), want)
+    assert cuda_dtw.walk_moves_cuda.launches == before + 1
+    _assert_walks_equal(dtw.dtw_align_from_dist(dist, n1, n2), want)
+    assert cuda_dtw.walk_moves_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_walk_kernel_counts_no_launch_on_empty_batch(cuda_device):
+    before = cuda_dtw.walk_moves_cuda.launches
+    n = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    p1, p2, plen = cuda_dtw.walk_moves_cuda(
+        torch.zeros((0, 16, 8), dtype=torch.int8, device=cuda_device), n, n)
+    assert tuple(p1.shape) == (0, 23) and tuple(plen.shape) == (0,)
+    assert cuda_dtw.walk_moves_cuda.launches == before
 
 
 @pytest.mark.cuda

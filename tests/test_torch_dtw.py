@@ -257,6 +257,78 @@ def test_walk_and_align_match_jax(kind, shape):
         assert (int(p1[b, -1]), int(p2[b, -1])) == (n1[b] - 1, n2[b] - 1)
 
 
+WALK_SHAPES = [(6, 24, 24), (5, 16, 32), (4, 32, 12), (3, 1, 9), (3, 9, 1),
+               (2, 1, 1)]
+
+
+def _codes(shape, seed, low=0):
+    """Uniform move codes low..3 as int8 (with low = 0 a walk may stay
+    put and never reach the origin; up and left moves at row or column 0
+    are clamped), ragged lengths with the full T first and 1 next."""
+    rng = np.random.RandomState(seed)
+    B, T1, T2 = shape
+    move = rng.randint(low, 4, shape).astype(np.int8)
+    n1 = rng.randint(1, T1 + 1, B).astype(np.int32)
+    n2 = rng.randint(1, T2 + 1, B).astype(np.int32)
+    n1[0], n2[0] = T1, T2
+    n1[1], n2[1] = 1, 1
+    return move, n1, n2
+
+
+@pytest.mark.parametrize("low", [0, 1])
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_walk_moves_of_random_codes_matches_jax(shape, low):
+    """walk_moves on CPU tensors (the plain loop) gives the JAX package's
+    walk_moves on uniform random codes exactly: walks that rest at the
+    origin, walks clamped at row or column 0, walks that never reach the
+    origin (path_len = L + 1); int64 out."""
+    move, n1, n2 = _codes(shape, seed=20 + low, low=low)
+    out_j = jdtw.walk_moves(jnp.asarray(move), jnp.asarray(n1),
+                            jnp.asarray(n2))
+    out_t = tdtw.walk_moves(*(torch.from_numpy(a) for a in (move, n1, n2)))
+    _assert_paths_equal(out_j, out_t)
+    assert all(t.dtype == torch.int64 for t in out_t)
+    L = shape[1] + shape[2] - 1
+    assert tuple(out_t[0].shape) == (shape[0], L)
+    assert int(out_t[2].max()) <= L + 1
+
+
+def test_walk_moves_on_cpu_takes_the_plain_loop(monkeypatch):
+    move, n1, n2 = (torch.from_numpy(a)
+                    for a in _codes((4, 12, 20), seed=23))
+    want = tdtw.walk_moves_plain(move, n1, n2)
+    calls = []
+
+    def plain(*args):
+        calls.append(args)
+        return want
+    monkeypatch.setattr(tdtw, "walk_moves_plain", plain)
+    before = cuda_dtw.walk_moves_cuda.launches
+    assert tdtw.walk_moves(move, n1, n2) is want
+    assert len(calls) == 1 and cuda_dtw.walk_moves_cuda.launches == before
+
+
+@pytest.mark.parametrize("case,match", [("cpu", "CUDA"), ("float", "int8"),
+                                        ("strided", "contiguous")])
+def test_walk_kernel_wrapper_rejects_before_any_library(monkeypatch, case,
+                                                        match):
+    """A CPU plane, a plane that is not int8 and a plane that is not
+    contiguous raise before a library is built or loaded."""
+    def no_library(name):
+        raise AssertionError(f"the {name} library was touched")
+    monkeypatch.setattr(cuda_dtw, "_lib", no_library)
+    move = torch.ones((2, 6, 4), dtype=torch.int8)
+    if case == "float":
+        move = move.float()
+    elif case == "strided":
+        move = torch.ones((2, 4, 6), dtype=torch.int8).transpose(1, 2)
+    n = torch.ones(2, dtype=torch.int32)
+    before = cuda_dtw.walk_moves_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        cuda_dtw.walk_moves_cuda(move, n, n)
+    assert cuda_dtw.walk_moves_cuda.launches == before
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_align_batch_and_gather_match_jax(seed):
     """dtw_align_batch (zero-padded frames, ragged lengths) and
