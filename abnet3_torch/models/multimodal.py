@@ -22,6 +22,7 @@ from torch import nn
 from abnet3_torch.models.siamese import NetworkBuilder
 from abnet3_torch.nn import ForwardReplay, Tower, TowerSpec
 from abnet3_torch import dist as mesh_dist
+from abnet3_torch.profiling import span
 from abnet3_torch.utils import expand_dimension_list, resolve_device
 from abnet3_torch.weights import JaxLayout
 
@@ -81,6 +82,12 @@ class MultimodalSiameseNetwork(NetworkBuilder):
         self.integration_unit = integration_unit.to(dev)
         self.post_net = tower(post_integration_net_params) \
             if self.post else None
+        # span names by mode (True: training), made once
+        self._spans = {
+            training: ([f"{mode}/mm.pre_{i}"
+                        for i in range(len(self.pre_nets))],
+                       f"{mode}/mm.integration")
+            for training, mode in ((True, "train"), (False, "dev"))}
 
     # -- the JAX package's tree --------------------------------------------
     def jax_towers(self):
@@ -126,6 +133,7 @@ class MultimodalSiameseNetwork(NetworkBuilder):
         if not isinstance(x_list, (list, tuple)):
             x_list = [x_list]
         g = self._generator
+        pre_spans, unit_span = self._spans[self.training]
         partial_results = list(x_list)
         attention_inputs = None
         if self.pre:
@@ -133,9 +141,10 @@ class MultimodalSiameseNetwork(NetworkBuilder):
                 f"Number of inputs: {len(x_list)} doesn't match number of "
                 f"pre_integration nets: {len(self.pre_nets)}")
             partial_results, all_partials = [], []
-            for x, net in zip(x_list, self.pre_nets):
-                out, partials = net(x, weights=weights, generator=g,
-                                    save_partials=True)
+            for x, net, name in zip(x_list, self.pre_nets, pre_spans):
+                with span(name):
+                    out, partials = net(x, weights=weights, generator=g,
+                                        save_partials=True)
                 partial_results.append(out)
                 all_partials.append(partials)
             if self.asynchronous_integration_index is not None:
@@ -144,9 +153,10 @@ class MultimodalSiameseNetwork(NetworkBuilder):
         kwargs = {}
         if integration_mask is not None:
             kwargs["mask"] = integration_mask
-        out = self.integration_unit(partial_results,
-                                    diff_input=attention_inputs,
-                                    generator=g, **kwargs)
+        with span(unit_span):
+            out = self.integration_unit(partial_results,
+                                        diff_input=attention_inputs,
+                                        generator=g, **kwargs)
         if self.post:
             out = self.post_net(out, weights=weights, generator=g)
         return out

@@ -86,7 +86,7 @@ from abnet3_torch import dist as mesh_dist
 from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
                                   dtw_align_from_dist, dtw_path_from_dist,
                                   gather_aligned, pairwise_angular_distance)
-from abnet3_torch.profiling import span
+from abnet3_torch.profiling import count, span
 
 __all__ = ["make_mesh", "mesh_shape", "param_shardings", "shard_array",
            "shard_network", "make_split_pair_train_step",
@@ -910,6 +910,25 @@ def make_pair_train_step(network, loss, optimizer, bank,
                                         matrix_value, layout), groups)
 
 
+# counter (abnet3_torch.profiling): the bytes a multimodal frame step
+# gathers from its modality tables, by the step run (train or eval)
+_MM_GATHER = {True: "train/mm_gather_bytes", False: "dev/mm_gather_bytes"}
+
+
+def _counted_gathers(steps, tables):
+    """``steps`` (train_step, eval_step) over (i1, i2, y, w) that count
+    the bytes their gathers read from ``tables``: both sides' rows of
+    every table, from the shapes (no device read)."""
+    row = 2 * sum(t.shape[1] * t.element_size() for t in tables)
+
+    def counted(step, training):
+        def run(i1, i2, y, w):
+            count(_MM_GATHER[training], row * i1.shape[0])
+            return step(i1, i2, y, w)
+        return run
+    return counted(steps[0], True), counted(steps[1], False)
+
+
 def make_frame_train_step(network, loss, optimizer, tables,
                           multimodal: bool = False, mesh=None):
     """Train/eval steps over FrameBankBatch index batches against device
@@ -920,7 +939,8 @@ def make_frame_train_step(network, loss, optimizer, tables,
     ``[t[i] for t in tables]`` (``MultimodalSiameseNetwork.forward`` takes
     lists, even of one modality), else the one table's rows. With a
     ``mesh`` each rank runs its block of the rows, padded with weight
-    0."""
+    0. A multimodal step counts the bytes it gathers (``train/`` or
+    ``dev/mm_gather_bytes``)."""
     tables = tuple(tables)
     if not multimodal:
         (table,) = tables
@@ -930,8 +950,11 @@ def make_frame_train_step(network, loss, optimizer, tables,
             return [t[i1] for t in tables], [t[i2] for t in tables], y, w
         return table[i1], table[i2], y, w
 
-    return _on_mesh(mesh, _gather_steps(network, loss, optimizer, gather,
-                                        lambda: [("p", 1)]),
+    steps = _gather_steps(network, loss, optimizer, gather,
+                          lambda: [("p", 1)])
+    if multimodal:
+        steps = _counted_gathers(steps, tables)
+    return _on_mesh(mesh, steps,
                     _groups_of(("p", [0, 1, 2, 3], [0, 0, 1.0, 0.0])))
 
 

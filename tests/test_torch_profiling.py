@@ -307,3 +307,55 @@ def test_trainer_epoch_spans_count_its_steps_and_batches(
             assert spans[f"train/loader.{part}"]["count"] > 0, part
         assert counters["train/h2d_pageable_bytes"] > 0
         assert counters["dev/h2d_pageable_bytes"] > 0
+
+
+def test_multimodal_epoch_spans_and_gather_counter(spans_on, tmp_path):
+    """An epoch of the multimodal frame step: per step and per branch one
+    span around each pre-net and one around the unit, named by the
+    network's mode, and the bytes the step gathers from the two modality
+    tables, counted from the rows."""
+    from abnet3_torch.dataloader import MultimodalDataLoader
+    from abnet3_torch.integration import BiWeightedDeepLearnt
+    from abnet3_torch.loss import coscos2
+    from abnet3_torch.models.multimodal import MultimodalSiameseNetwork
+    from abnet3_torch.trainer import MultimodalTrainer
+    from abnet3_torch.utils import Features_Accessor
+    feats, pairs = _corpus()
+    wide = Features_Accessor(feats.times, {
+        f: np.repeat(v, 2, axis=1)[:, :6] for f, v in feats.features.items()})
+    loader = MultimodalDataLoader(None, ["a", "b"], batch_size=8,
+                                  max_batches_per_epoch=3, steps_per_call=2,
+                                  device="cpu")
+    loader.features_dict = {"a": feats, "b": wide}
+    loader.pairs = pairs
+    loader._rng = np.random.RandomState(0)
+    net = MultimodalSiameseNetwork(
+        integration_unit=BiWeightedDeepLearnt(net_params=[[8, 1], [8, 1]]),
+        pre_integration_net_params=[[4, 8, 8], [6, 8, 8]],
+        post_integration_net_params=[8, 4], attention_lr=0.01,
+        asynchronous_integration_index=1, activation_layer="sigmoid",
+        device="cpu")
+    trainer = MultimodalTrainer(network=net, loss=coscos2(),
+                                dataloader=loader, optimizer_type="adadelta",
+                                lr=0.1, num_epochs=1, seed=0, device="cpu",
+                                cuda=False, log_dir=str(tmp_path))
+    trainer.train_losses, trainer.dev_losses = [], []
+    rows = {True: 0, False: 0}
+    run_step = trainer._run_step
+
+    def counted(b, do_training):
+        rows[do_training] += len(b.i1)
+        return run_step(b, do_training)
+    trainer._run_step = counted
+    before = profiling.span_totals()
+    trainer.optimize_model(do_training=True)
+    got = _since(before)
+    spans, counters = got["spans"], got["counters"]
+    for mode in ("train", "dev"):
+        n = spans[f"{mode}/step"]["count"]
+        assert n > 0
+        for part in ("pre_0", "pre_1", "integration"):
+            assert spans[f"{mode}/mm.{part}"]["count"] == 2 * n, (mode, part)
+    row_bytes = 2 * (4 + 6) * 4
+    assert counters["train/mm_gather_bytes"] == row_bytes * rows[True]
+    assert counters["dev/mm_gather_bytes"] == row_bytes * rows[False]
