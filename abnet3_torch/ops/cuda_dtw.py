@@ -531,3 +531,9 @@ def walk_moves_cuda(move: torch.Tensor, n1: torch.Tensor, n2: torch.Tensor
 
 
 walk_moves_cuda.launches = 0
+
+#: every kernel wrapper, each counting its launches (``.launches``); a
+#: CUDA graph's replay counts the launches it holds again
+#: (:mod:`abnet3_torch.parallel.mesh`)
+LAUNCHERS = (dtw_path_cuda, dtw_path_stats_cuda, dtw_moves_cuda,
+             dtw_costs_cuda, walk_moves_cuda)

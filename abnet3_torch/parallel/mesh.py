@@ -72,17 +72,24 @@ walk), the different pairs by truncation or diagonal stretch, the aligned
 frames gathered, and the frame-pair step of :func:`make_frame_pair_steps`
 runs on them. The two modes give the same loss (the visit counts of
 matrix mode are the batch-norm weights of the gathered rows).
+
+On the card, without a mesh or a tcl group and with an optimizer that
+takes no closure, the split step's matrix mode replays CUDA graphs
+(:class:`_GraphedSteps`): one per step kind and argument shapes, the
+prepare, forward and backward of a train step in one launch and its
+optimizer step eager; every other step runs as described above.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from abnet3_torch import dist as mesh_dist
+from abnet3_torch.nn import Tower
 from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
                                   dtw_align_from_dist, dtw_path_from_dist,
                                   gather_aligned, pairwise_angular_distance)
@@ -620,6 +627,163 @@ def _matrix_steps(network, optimizer, prepare, value, layout=None):
     return train_step, eval_step
 
 
+def _graphable(device, mesh, optimizer, frame_bank) -> bool:
+    """Whether the split step's matrix mode runs as CUDA graphs
+    (:class:`_GraphedSteps`): on the card, without a mesh (its padding and
+    collectives stay eager), with an optimizer that takes no closure
+    (LBFGS evaluates the loss again inside its step) and without a tcl
+    group."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and not getattr(optimizer, "takes_closure", False)
+            and frame_bank is None)
+
+
+# the graphed step's spans and counters (abnet3_torch.profiling), by the
+# step run (train or eval); the upload's span is the trainer's
+_UPLOAD = {True: "train/step.upload", False: "dev/step.upload"}
+_REPLAY = {True: "train/step.replay", False: "dev/step.replay"}
+_REPLAYS = {True: "train/graph_replays", False: "dev/graph_replays"}
+_CAPTURES = {True: "train/graph_captures", False: "dev/graph_captures"}
+
+
+class _StepGraph(NamedTuple):
+    """One captured step: the graph, its static arguments and loss, for a
+    train step the (parameter, gradient) pairs whose gradients the graph
+    writes, and the kernel launches it holds (per wrapper of
+    ``cuda_dtw.LAUNCHERS``)."""
+    graph: "torch.cuda.CUDAGraph"
+    args: list
+    loss: torch.Tensor
+    grads: list
+    launches: list
+
+
+class _GraphedSteps:
+    """The matrix mode's (train_step, eval_step) as one CUDA graph per
+    step kind and argument shapes and dtypes: a train step's graph holds
+    the prepare, the forward and the backward, an eval step's the prepare
+    and the forward; the optimizer step stays eager and is called through
+    ``optimizer.step`` once a train step.
+
+    The first step of a key is today's eager step (``eager``), run on the
+    side stream that the capture uses (PyTorch's warm-up); the second is
+    captured and replayed on its own batch; every later one copies its
+    arguments into the graph's and replays. Gradients are None at the
+    capture, so the backward writes fresh buffers of the graph's pool, as
+    an eager step after ``zero_grad(set_to_none=True)`` does; before each
+    optimizer step every parameter's ``.grad`` points at its graph's
+    buffer again (an eager step of another key may have set it to None).
+    Each step returns a copy of the graph's loss, which the next replay
+    overwrites. The capture is ``thread_local``: the trainer's prefetch
+    worker launches on the card meanwhile."""
+
+    def __init__(self, network, optimizer, prepare, value, eager):
+        self.network, self.optimizer = network, optimizer
+        self.prepare = torch.no_grad()(prepare)
+        self.value = value
+        self.eager = dict(zip((True, False), eager))
+        # key -> _StepGraph, or None after the key's eager first step
+        self.graphs = {}
+        self.stream = None
+
+    def train_step(self, *args):
+        return self._step(True, args)
+
+    def eval_step(self, *args):
+        return self._step(False, args)
+
+    def _step(self, training: bool, args):
+        key = (training,) + tuple((tuple(a.shape), a.dtype) for a in args)
+        if key not in self.graphs:
+            self.graphs[key] = None
+            return self._warm_up(training, args)
+        g = self.graphs[key]
+        if g is None:
+            g = self.graphs[key] = self._capture(training, args)
+        return self._replay(training, g, args)
+
+    def _side_stream(self):
+        if self.stream is None:
+            self.stream = torch.cuda.Stream()
+        return self.stream
+
+    def _warm_up(self, training: bool, args):
+        main, side = torch.cuda.current_stream(), self._side_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.eager[training](*args)
+        main.wait_stream(side)
+        return out
+
+    def _capture(self, training: bool, args) -> _StepGraph:
+        from abnet3_torch.ops.cuda_dtw import LAUNCHERS
+        net = self.network
+        static = [a.clone() for a in args]
+        graph = torch.cuda.CUDAGraph()
+        params = []
+        if training:
+            net.train()
+            generator = getattr(net, "_generator", None)
+            if generator is not None and any(
+                    isinstance(m, Tower) and m.spec.p_dropout > 0
+                    for m in net.modules()):
+                # the dropout masks come from the network's own generator
+                graph.register_generator_state(generator)
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+            for p in params:
+                p.grad = None
+        else:
+            net.eval()
+        before = [f.launches for f in LAUNCHERS]
+        count(_CAPTURES[training], 1)
+        with torch.cuda.graph(graph, stream=self._side_stream(),
+                              capture_error_mode="thread_local"):
+            loss = (self._train_body(static) if training
+                    else self._eval_body(static))
+        # the capture launched nothing; each replay counts its launches
+        launches = [f.launches - n for f, n in zip(LAUNCHERS, before)]
+        for f, n in zip(LAUNCHERS, before):
+            f.launches = n
+        return _StepGraph(graph, static, loss,
+                          [(p, p.grad) for p in params], launches)
+
+    def _train_body(self, args):
+        with span("train/step.prepare"):
+            parts = self.prepare(*args)
+        with span("train/step.forward"):
+            v = self.value(parts)
+        with span("train/step.backward"):
+            v.backward()
+        return v.detach()
+
+    @torch.no_grad()
+    def _eval_body(self, args):
+        with span("dev/step.prepare"):
+            parts = self.prepare(*args)
+        with span("dev/step.forward"):
+            return self.value(parts)
+
+    def _replay(self, training: bool, g: _StepGraph, args):
+        from abnet3_torch.ops.cuda_dtw import LAUNCHERS
+        with span(_UPLOAD[training]):
+            for static, a in zip(g.args, args):
+                static.copy_(a)
+        self.network.train(training)
+        with span(_REPLAY[training]):
+            g.graph.replay()
+        count(_REPLAYS[training], 1)
+        for f, n in zip(LAUNCHERS, g.launches):
+            f.launches += n
+        loss = g.loss.clone()
+        if training:
+            for p, grad in g.grads:
+                p.grad = grad
+            with span("train/step.optimizer"):
+                _opt_step(self.optimizer, loss, None)
+        return loss
+
+
 def _split_bank_align(bank, ids1s, ids2s, ws, ids1d, ids2d, wd,
                       align_different_words: bool, T: int,
                       yspk_s=None, yspk_d=None):
@@ -656,7 +820,9 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
     ``max_frames`` is the batch's length bucket. ``matrix_loss`` picks
     the mode (see :func:`use_matrix_loss`). With a ``mesh`` each rank
     runs its block of the same pairs, of the diff pairs and of the tcl
-    pairs, each padded with weight 0 (JAX's ``fill_for``)."""
+    pairs, each padded with weight 0 (JAX's ``fill_for``). On the card,
+    without a mesh or a tcl group and with an optimizer that takes no
+    closure, matrix mode replays CUDA graphs (:class:`_GraphedSteps`)."""
     _check_tcl(frame_bank, tcl, extra_labels)
     Tb = max_frames if max_frames is not None else bank.max_len
     T_eff = min(Tb, bank.max_len)
@@ -746,8 +912,13 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
         return ([("s", A_s.shape[1]), ("s", A_s.shape[2]), ("d", T1d),
                  ("d", T2d)] + _tcl_side(tcl_terms) * 2)
 
-    return _on_mesh(mesh, _matrix_steps(network, optimizer, matrix_parts,
-                                        matrix_value, layout), groups)
+    steps = _matrix_steps(network, optimizer, matrix_parts, matrix_value,
+                          layout)
+    if _graphable(bank.bank.device, mesh, optimizer, frame_bank):
+        graphed = _GraphedSteps(network, optimizer, matrix_parts,
+                                matrix_value, steps)
+        return graphed.train_step, graphed.eval_step
+    return _on_mesh(mesh, steps, groups)
 
 
 def _bank_align(bank, ids1, ids2, y_pair, pair_w,
