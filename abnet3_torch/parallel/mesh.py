@@ -43,11 +43,15 @@ reduces each head's cells under the same alignment masks.
   fully on-device pipeline of ``OnDeviceSamplerDataLoader``. A call takes
   a ``torch.Generator`` and runs ``steps_per_call`` steps, each drawing
   its mixed pair batch from a :class:`~abnet3_torch.ops.sampling
-  .DevicePairSampler` on the card and aligning it there; it returns the
-  mean loss (train) or the per-step losses (eval) as device tensors,
-  with no host read inside.
+  .DevicePairSampler` on the card and running the mixed-pair step of
+  :func:`make_pair_train_step` on it; it returns the mean loss (train)
+  or the per-step losses (eval) as device tensors, with no host read
+  inside.
 
-Every train step hands its loss and a closure to :func:`_opt_step`: an
+Every step runs one body (:class:`_StepBody`): a prepare under
+``torch.no_grad()``, the forward, the backward and the optimizer step,
+each under its span of the step table below. Every train step hands its
+loss and a closure to :func:`_opt_step`: an
 optimizer that takes them (:class:`abnet3_torch.optim.LBFGS`, whose
 linesearch evaluates the loss again at other parameters) gets the
 closure, which replays the step's forward (its batch, its alignment
@@ -76,13 +80,14 @@ matrix mode are the batch-norm weights of the gathered rows).
 On the card, without a mesh or a tcl group and with an optimizer that
 takes no closure, the split step's matrix mode replays CUDA graphs
 (:class:`_GraphedSteps`): one per step kind and argument shapes, the
-prepare, forward and backward of a train step in one launch and its
-optimizer step eager; every other step runs as described above.
+body's prepare, forward and backward of a train step in one launch and
+its optimizer step eager; every other step runs as described above.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import NamedTuple, Optional
 
@@ -90,6 +95,7 @@ import torch
 
 from abnet3_torch import dist as mesh_dist
 from abnet3_torch.nn import Tower
+from abnet3_torch.ops.cuda_dtw import LAUNCHERS
 from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
                                   dtw_align_from_dist, dtw_path_from_dist,
                                   gather_aligned, pairwise_angular_distance)
@@ -265,6 +271,22 @@ def shard_network(network, mesh):
     return network
 
 
+# the step's spans and counters (abnet3_torch.profiling), by the step run
+# (train or eval): the trainer's step and upload around it, the body's
+# parts, a graphed step's replay and graph counts, and the bytes a
+# multimodal frame step gathers from its modality tables
+_STEP = {True: "train/step", False: "dev/step"}
+_UPLOAD = {True: "train/step.upload", False: "dev/step.upload"}
+_PREPARE = {True: "train/step.prepare", False: "dev/step.prepare"}
+_FORWARD = {True: "train/step.forward", False: "dev/step.forward"}
+_BACKWARD = "train/step.backward"
+_OPTIMIZER = "train/step.optimizer"
+_REPLAY = {True: "train/step.replay", False: "dev/step.replay"}
+_REPLAYS = {True: "train/graph_replays", False: "dev/graph_replays"}
+_CAPTURES = {True: "train/graph_captures", False: "dev/graph_captures"}
+_MM_GATHER = {True: "train/mm_gather_bytes", False: "dev/mm_gather_bytes"}
+
+
 def _frames(layout):
     """The frame layout ``layout()`` of a sharded step's forward (see
     :meth:`abnet3_torch.dist.Shard.frames`); nothing without a
@@ -298,8 +320,9 @@ def _on_mesh(mesh, steps, groups):
     indices, fill values) of the argument groups sharing their rows; each
     is padded and cut (:meth:`~abnet3_torch.dist.Shard.take`),
     and the step runs inside :func:`~abnet3_torch.dist.sharded`.
-    The train step returns the global loss already (``_train_on``); the
-    eval step its block's share, summed here over 'data'."""
+    The train step returns the global loss already
+    (:meth:`_StepBody.gradient`); the eval step its block's share, summed
+    here over 'data'."""
     if mesh is None:
         return steps
 
@@ -332,35 +355,82 @@ def _opt_step(optimizer, value: torch.Tensor, closure) -> None:
         optimizer.step()
 
 
-def _train_on(network, optimizer, evaluate) -> torch.Tensor:
-    """One optimizer step on the loss ``evaluate()`` (a train-mode forward
-    of ``network`` on prepared inputs); returns the loss, detached. For
-    an optimizer that takes a closure the closure replays that forward
-    (:meth:`~abnet3_torch.models.siamese.SiameseNetwork.replay`)."""
-    network.train()
-    optimizer.zero_grad(set_to_none=True)
-    replay = (network.replay()
-              if getattr(optimizer, "takes_closure", False) else None)
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    with span("train/step.forward"):
-        v = evaluate()
-    with span("train/step.backward"):
-        v.backward()
-        # in a sharded step: the gradient and the loss of the global batch
-        mesh_dist.reduce_grads(params)
-        v = mesh_dist.global_sum(v.detach())
+class _StepBody:
+    """The one body of every step: ``prepare(*args)``, run under
+    ``torch.no_grad()``, assembles the parts that do not depend on the
+    parameters (without ``prepare`` the arguments are the parts), and
+    ``value(parts)`` is their loss in the network's current mode.
+    ``layout(parts)``: the frame layout of the forward's frame batch in a
+    sharded step.
 
-    def closure():
-        with replay:
-            optimizer.zero_grad(set_to_none=True)
-            again = evaluate()
-            again.backward()
-        mesh_dist.reduce_grads(params)
-        return mesh_dist.global_sum(again.detach())
+    A train step is :meth:`gradient` (prepare, forward, backward) and the
+    optimizer step (:func:`_opt_step`); an eval step runs prepare and
+    forward under ``torch.no_grad()`` in eval mode. Each part is a span
+    of the step table (``_PREPARE``, ``_FORWARD``, ``_BACKWARD``,
+    ``_OPTIMIZER``); without ``prepare`` no prepare span opens.
+    :class:`_GraphedSteps` captures :meth:`gradient` and
+    :meth:`eval_step`."""
 
-    with span("train/step.optimizer"):
-        _opt_step(optimizer, v, closure)
-    return v
+    def __init__(self, network, optimizer, value, prepare=None,
+                 layout=None):
+        self.network, self.optimizer = network, optimizer
+        self.value, self.layout = value, layout
+        self.prepare = None if prepare is None else torch.no_grad()(prepare)
+
+    @property
+    def steps(self):
+        """(train_step, eval_step)."""
+        return self.train_step, self.eval_step
+
+    def gradient(self, *args):
+        """The train step's prepare, forward and backward; returns the
+        loss (the global batch's, detached) and the closure that evaluates
+        it and its gradient again at the current parameters, with the
+        step's parts, dropout masks and pre-step batch-norm buffers
+        (:meth:`~abnet3_torch.models.siamese.SiameseNetwork.replay`)."""
+        network, optimizer, value = self.network, self.optimizer, self.value
+        parts = args
+        if self.prepare is not None:
+            with span(_PREPARE[True]):
+                parts = self.prepare(*args)
+        layout = self.layout and (lambda: self.layout(parts))
+        network.train()
+        optimizer.zero_grad(set_to_none=True)
+        replay = (network.replay()
+                  if getattr(optimizer, "takes_closure", False) else None)
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        with span(_FORWARD[True]), _frames(layout):
+            v = value(parts)
+        with span(_BACKWARD):
+            v.backward()
+            # in a sharded step: the gradient and the loss of the global batch
+            mesh_dist.reduce_grads(params)
+            v = mesh_dist.global_sum(v.detach())
+
+        def closure():
+            with replay, _frames(layout):
+                optimizer.zero_grad(set_to_none=True)
+                again = value(parts)
+                again.backward()
+            mesh_dist.reduce_grads(params)
+            return mesh_dist.global_sum(again.detach())
+        return v, closure
+
+    def train_step(self, *args):
+        v, closure = self.gradient(*args)
+        with span(_OPTIMIZER):
+            _opt_step(self.optimizer, v, closure)
+        return v
+
+    @torch.no_grad()
+    def eval_step(self, *args):
+        self.network.eval()
+        parts = args
+        if self.prepare is not None:
+            with span(_PREPARE[False]):
+                parts = self.prepare(*args)
+        with span(_FORWARD[False]):
+            return self.value(parts)
 
 
 def _diff_path_mask(p1d, p2d, plen_d, wd, T1: int, T2: int) -> torch.Tensor:
@@ -534,10 +604,13 @@ def _per_frame(labels, n_rows):
     return labels.repeat_interleave(n_rows // max(labels.shape[0], 1))
 
 
-def _frame_value(network, loss, x1, x2, y, w, y_spk=None):
-    """The loss of aligned frame pairs in the network's current mode
-    (``w`` weighs the batch norm only in training): the siamese loss, or
-    with speaker labels ``y_spk`` the multitask loss of both heads."""
+def _frame_value(network, loss, pairs):
+    """The loss of aligned frame pairs (x1, x2, y, w[, y_spk]) in the
+    network's current mode (``w`` weighs the batch norm only in
+    training): the siamese loss, or with speaker labels ``y_spk`` the
+    multitask loss of both heads."""
+    x1, x2, y, w = pairs[:4]
+    y_spk = pairs[4] if len(pairs) > 4 else None
     if y_spk is None:
         e1, e2 = network.forward(x1, x2, weights=w)
         return loss(e1, e2, y, weights=w)
@@ -545,23 +618,14 @@ def _frame_value(network, loss, x1, x2, y, w, y_spk=None):
     return loss(spk1, phn1, spk2, phn2, y_spk, y, weights=w)
 
 
-def _frame_pair_steps(network, loss, optimizer, side=None):
-    """(train_step, eval_step) over aligned frame pairs (x1, x2, y, w[,
-    y_spk]); ``side()``: the frame layout of one side in a sharded
-    step."""
-
-    def train_step(x1, x2, y, w, y_spk=None):
-        with _frames(side and (lambda: _both_sides(x1, side()))):
-            return _train_on(network, optimizer, lambda: _frame_value(
-                network, loss, x1, x2, y, w, y_spk))
-
-    @torch.no_grad()
-    def eval_step(x1, x2, y, w, y_spk=None):
-        network.eval()
-        with span("dev/step.forward"):
-            return _frame_value(network, loss, x1, x2, y, w, y_spk)
-
-    return train_step, eval_step
+def _frame_body(network, loss, optimizer, prepare, side):
+    """The body of a step over aligned frame pairs (x1, x2, y, w[,
+    y_spk]): ``prepare(*args)`` assembles them (None: the arguments are
+    the frame pairs); ``side()``: the frame layout of one side in a
+    sharded step (the argument groups' rows per entry)."""
+    return _StepBody(network, optimizer,
+                     functools.partial(_frame_value, network, loss), prepare,
+                     lambda pairs: _both_sides(pairs[0], side()))
 
 
 def make_frame_pair_steps(network, loss, optimizer, mesh=None):
@@ -573,58 +637,10 @@ def make_frame_pair_steps(network, loss, optimizer, mesh=None):
     batch-norm statistics. ``train_step`` also updates the parameters
     (``optimizer``) and batch-norm buffers in place. With a ``mesh`` each
     rank runs its block of the rows (padded with weight 0)."""
-    steps = _frame_pair_steps(network, loss, optimizer, lambda: [("p", 1)])
-    return _on_mesh(mesh, steps, lambda args: [
+    body = _frame_body(network, loss, optimizer, None, lambda: [("p", 1)])
+    return _on_mesh(mesh, body.steps, lambda args: [
         ("p", list(range(len(args))),
          [0.0, 0.0, 1.0, 0.0, 1.0][:len(args)])])
-
-
-def _gather_steps(network, loss, optimizer, prepare, side=None):
-    """(train_step, eval_step) of a gather mode: ``prepare(*args)`` (run
-    under ``torch.no_grad()``) assembles the frame pairs (x1, x2, y, w[,
-    y_spk]) that the frame-pair step then takes. ``side()``: the frame
-    layout of one side in a sharded step (the argument groups' rows per
-    entry)."""
-    prepare = torch.no_grad()(prepare)
-    frame_train, frame_eval = _frame_pair_steps(network, loss, optimizer,
-                                                side)
-
-    def train_step(*args):
-        with span("train/step.prepare"):
-            frames = prepare(*args)
-        return frame_train(*frames)
-
-    def eval_step(*args):
-        with span("dev/step.prepare"):
-            frames = prepare(*args)
-        return frame_eval(*frames)
-
-    return train_step, eval_step
-
-
-def _matrix_steps(network, optimizer, prepare, value, layout=None):
-    """(train_step, eval_step) of a matrix mode: ``prepare(*args)`` (run
-    under ``torch.no_grad()``) assembles the parts that do not depend on
-    the parameters, ``value(parts)`` computes the loss from them.
-    ``layout(parts)``: the frame layout of the unique-frame batch in a
-    sharded step."""
-    prepare = torch.no_grad()(prepare)
-
-    def train_step(*args):
-        with span("train/step.prepare"):
-            parts = prepare(*args)
-        with _frames(layout and (lambda: layout(parts))):
-            return _train_on(network, optimizer, lambda: value(parts))
-
-    @torch.no_grad()
-    def eval_step(*args):
-        network.eval()
-        with span("dev/step.prepare"):
-            parts = prepare(*args)
-        with span("dev/step.forward"):
-            return value(parts)
-
-    return train_step, eval_step
 
 
 def _graphable(device, mesh, optimizer, frame_bank) -> bool:
@@ -636,14 +652,6 @@ def _graphable(device, mesh, optimizer, frame_bank) -> bool:
     return (torch.device(device).type == "cuda" and mesh is None
             and not getattr(optimizer, "takes_closure", False)
             and frame_bank is None)
-
-
-# the graphed step's spans and counters (abnet3_torch.profiling), by the
-# step run (train or eval); the upload's span is the trainer's
-_UPLOAD = {True: "train/step.upload", False: "dev/step.upload"}
-_REPLAY = {True: "train/step.replay", False: "dev/step.replay"}
-_REPLAYS = {True: "train/graph_replays", False: "dev/graph_replays"}
-_CAPTURES = {True: "train/graph_captures", False: "dev/graph_captures"}
 
 
 class _StepGraph(NamedTuple):
@@ -659,32 +667,31 @@ class _StepGraph(NamedTuple):
 
 
 class _GraphedSteps:
-    """The matrix mode's (train_step, eval_step) as one CUDA graph per
-    step kind and argument shapes and dtypes: a train step's graph holds
-    the prepare, the forward and the backward, an eval step's the prepare
-    and the forward; the optimizer step stays eager and is called through
-    ``optimizer.step`` once a train step.
+    """The steps of a :class:`_StepBody` as one CUDA graph per step kind
+    and argument shapes and dtypes: a train step's graph holds the body's
+    :meth:`~_StepBody.gradient` (prepare, forward, backward), an eval
+    step's the body's eval step (prepare, forward); the optimizer step
+    stays eager and is called through ``optimizer.step`` once a train
+    step.
 
-    The first step of a key is today's eager step (``eager``), run on the
-    side stream that the capture uses (PyTorch's warm-up); the second is
+    The first step of a key is the body's eager step, run on the side
+    stream that the capture uses (PyTorch's warm-up); the second is
     captured and replayed on its own batch; every later one copies its
     arguments into the graph's and replays. Gradients are None at the
-    capture, so the backward writes fresh buffers of the graph's pool, as
-    an eager step after ``zero_grad(set_to_none=True)`` does; before each
-    optimizer step every parameter's ``.grad`` points at its graph's
-    buffer again (an eager step of another key may have set it to None).
-    Each step returns a copy of the graph's loss, which the next replay
-    overwrites. The capture is ``thread_local``: the trainer's prefetch
-    worker launches on the card meanwhile."""
+    capture (the body's ``zero_grad(set_to_none=True)``), so the backward
+    writes fresh buffers of the graph's pool; before each optimizer step
+    every parameter's ``.grad`` points at its graph's buffer again (an
+    eager step of another key may have set it to None). Each step returns
+    a copy of the graph's loss, which the next replay overwrites. The
+    capture is ``thread_local``: the trainer's prefetch worker launches on
+    the card meanwhile."""
 
-    def __init__(self, network, optimizer, prepare, value, eager):
-        self.network, self.optimizer = network, optimizer
-        self.prepare = torch.no_grad()(prepare)
-        self.value = value
-        self.eager = dict(zip((True, False), eager))
+    def __init__(self, body: _StepBody):
+        self.body = body
         # key -> _StepGraph, or None after the key's eager first step
         self.graphs = {}
-        self.stream = None
+        # the side stream of the warm-ups and captures
+        self.stream = torch.cuda.Stream()
 
     def train_step(self, *args):
         return self._step(True, args)
@@ -702,45 +709,35 @@ class _GraphedSteps:
             g = self.graphs[key] = self._capture(training, args)
         return self._replay(training, g, args)
 
-    def _side_stream(self):
-        if self.stream is None:
-            self.stream = torch.cuda.Stream()
-        return self.stream
-
     def _warm_up(self, training: bool, args):
-        main, side = torch.cuda.current_stream(), self._side_stream()
+        body = self.body
+        main, side = torch.cuda.current_stream(), self.stream
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self.eager[training](*args)
+            out = (body.train_step if training else body.eval_step)(*args)
         main.wait_stream(side)
         return out
 
     def _capture(self, training: bool, args) -> _StepGraph:
-        from abnet3_torch.ops.cuda_dtw import LAUNCHERS
-        net = self.network
+        body = self.body
         static = [a.clone() for a in args]
         graph = torch.cuda.CUDAGraph()
         params = []
         if training:
-            net.train()
-            generator = getattr(net, "_generator", None)
+            generator = getattr(body.network, "_generator", None)
             if generator is not None and any(
                     isinstance(m, Tower) and m.spec.p_dropout > 0
-                    for m in net.modules()):
+                    for m in body.network.modules()):
                 # the dropout masks come from the network's own generator
                 graph.register_generator_state(generator)
-            params = [p for g in self.optimizer.param_groups
+            params = [p for g in body.optimizer.param_groups
                       for p in g["params"]]
-            for p in params:
-                p.grad = None
-        else:
-            net.eval()
         before = [f.launches for f in LAUNCHERS]
         count(_CAPTURES[training], 1)
-        with torch.cuda.graph(graph, stream=self._side_stream(),
+        with torch.cuda.graph(graph, stream=self.stream,
                               capture_error_mode="thread_local"):
-            loss = (self._train_body(static) if training
-                    else self._eval_body(static))
+            loss = (body.gradient(*static)[0] if training
+                    else body.eval_step(*static))
         # the capture launched nothing; each replay counts its launches
         launches = [f.launches - n for f, n in zip(LAUNCHERS, before)]
         for f, n in zip(LAUNCHERS, before):
@@ -748,28 +745,11 @@ class _GraphedSteps:
         return _StepGraph(graph, static, loss,
                           [(p, p.grad) for p in params], launches)
 
-    def _train_body(self, args):
-        with span("train/step.prepare"):
-            parts = self.prepare(*args)
-        with span("train/step.forward"):
-            v = self.value(parts)
-        with span("train/step.backward"):
-            v.backward()
-        return v.detach()
-
-    @torch.no_grad()
-    def _eval_body(self, args):
-        with span("dev/step.prepare"):
-            parts = self.prepare(*args)
-        with span("dev/step.forward"):
-            return self.value(parts)
-
     def _replay(self, training: bool, g: _StepGraph, args):
-        from abnet3_torch.ops.cuda_dtw import LAUNCHERS
         with span(_UPLOAD[training]):
             for static, a in zip(g.args, args):
                 static.copy_(a)
-        self.network.train(training)
+        self.body.network.train(training)
         with span(_REPLAY[training]):
             g.graph.replay()
         count(_REPLAYS[training], 1)
@@ -779,8 +759,8 @@ class _GraphedSteps:
         if training:
             for p, grad in g.grads:
                 p.grad = grad
-            with span("train/step.optimizer"):
-                _opt_step(self.optimizer, loss, None)
+            with span(_OPTIMIZER):
+                _opt_step(self.body.optimizer, loss, None)
         return loss
 
 
@@ -827,14 +807,12 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
     Tb = max_frames if max_frames is not None else bank.max_len
     T_eff = min(Tb, bank.max_len)
     spk = extra_labels
+    # a tcl group comes without speaker labels (_check_tcl)
     groups = _groups_of(
         ("s", [0, 1, 2] + ([6] if spk else []), [0, 0, 0.0, 1.0]),
-        ("d", [3, 4, 5] + ([7] if spk else []), [0, 0, 0.0, 1.0]))
-    if frame_bank is not None:
-        n = 8 if spk else 6
-        groups = _groups_of(
-            ("s", [0, 1, 2], [0, 0, 0.0]), ("d", [3, 4, 5], [0, 0, 0.0]),
-            ("t", [n, n + 1, n + 2, n + 3], [0, 0, 1.0, 0.0]))
+        ("d", [3, 4, 5] + ([7] if spk else []), [0, 0, 0.0, 1.0]),
+        ("t", [6, 7, 8, 9] if frame_bank is not None else [],
+         [0, 0, 1.0, 0.0]))
 
     def split_args(args):
         """(ids1s, ids2s, ws, ids1d, ids2d, wd), (yspk_s, yspk_d) or
@@ -856,8 +834,8 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
             return ([("s", 2 * T_eff - 1), ("d", T_eff)]
                     + _tcl_side(frame_bank))
 
-        return _on_mesh(mesh, _gather_steps(network, loss, optimizer, align,
-                                            side), groups)
+        return _on_mesh(mesh, _frame_body(network, loss, optimizer, align,
+                                          side).steps, groups)
 
     def matrix_parts(*args):
         args, yspk, tcl_args = split_args(args)
@@ -912,13 +890,11 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
         return ([("s", A_s.shape[1]), ("s", A_s.shape[2]), ("d", T1d),
                  ("d", T2d)] + _tcl_side(tcl_terms) * 2)
 
-    steps = _matrix_steps(network, optimizer, matrix_parts, matrix_value,
-                          layout)
+    body = _StepBody(network, optimizer, matrix_value, matrix_parts, layout)
     if _graphable(bank.bank.device, mesh, optimizer, frame_bank):
-        graphed = _GraphedSteps(network, optimizer, matrix_parts,
-                                matrix_value, steps)
+        graphed = _GraphedSteps(body)
         return graphed.train_step, graphed.eval_step
-    return _on_mesh(mesh, steps, groups)
+    return _on_mesh(mesh, body.steps, groups)
 
 
 def _bank_align(bank, ids1, ids2, y_pair, pair_w,
@@ -979,21 +955,29 @@ def _head_cells(cell_loss, e, B, T1, T2):
     """Per-cell statistics of one head's [e1; e2] rows via the loss's
     decomposition (loss.pair_cells)."""
     e1 = e[:B * T1].reshape(B, T1, -1)
-    e2 = e[B * T1:].reshape(B, T2, -1)
+    e2 = e[B * T1:B * (T1 + T2)].reshape(B, T2, -1)
     return cell_loss.pair_cells(e1, e2)
 
 
-def _bank_matrix_value(network, loss, parts, y_spk_pair=None):
-    """Embed the unique-frame batch of :func:`_bank_align_matrix` once and
-    reduce the mask-weighted cells (mixed-pair matrix mode). With
-    ``y_spk_pair`` the multitask family: one trunk pass, one cell matrix
-    per head, both reduced under the same alignment mask."""
-    frames, w_frames, A, y_cells = parts
+def _bank_matrix_value(network, loss, prepared):
+    """The mixed-pair matrix mode's loss of ``prepared`` = (parts,
+    y_spk_pair, tcl_terms): the unique-frame batch of
+    :func:`_bank_align_matrix` embedded once and the mask-weighted cells
+    reduced. With ``y_spk_pair`` the multitask family: one trunk pass,
+    one cell matrix per head, both reduced under the same alignment mask.
+    With ``tcl_terms`` (monotask) the tcl pairs' cells from the rows after
+    the tokens' join the loss (:func:`_with_tcl_cells`)."""
+    (frames, w_frames, A, y_cells), y_spk_pair, tcl_terms = prepared
     B, T1, T2 = A.shape
     if y_spk_pair is None:
         e = network.forward_once(frames, weights=w_frames)
-        return loss.from_cells(_head_cells(loss, e, B, T1, T2), y_cells,
-                               weights=A)
+        cells = _head_cells(loss, e, B, T1, T2)
+        if tcl_terms is None:
+            return loss.from_cells(cells, y_cells, weights=A)
+        c, y, w = _with_tcl_cells(loss, cells.flatten(-3),
+                                  y_cells.reshape(-1), A.reshape(-1),
+                                  e[B * (T1 + T2):], tcl_terms)
+        return loss.from_cells(c, y, weights=w)
     spk, phn = network.forward_once(frames, weights=w_frames)
     return loss.from_cells_multi(
         _head_cells(loss.loss_spk, spk, B, T1, T2),
@@ -1043,9 +1027,9 @@ def make_pair_train_step(network, loss, optimizer, bank,
                 _bank_align(bank, *args, align_different_words, T, y_spk),
                 tcl_args, frame_bank, tcl)
 
-        return _on_mesh(mesh, _gather_steps(
+        return _on_mesh(mesh, _frame_body(
             network, loss, optimizer, gather_prepare,
-            lambda: [("p", 2 * T_eff - 1)] + _tcl_side(frame_bank)),
+            lambda: [("p", 2 * T_eff - 1)] + _tcl_side(frame_bank)).steps,
             groups)
 
     def matrix_prepare(*args):
@@ -1058,32 +1042,15 @@ def make_pair_train_step(network, loss, optimizer, bank,
             frames, w_frames, tcl_args, frame_bank, tcl, A.sum())
         return (frames, w_frames) + parts[2:], y_spk, tcl_terms
 
-    def matrix_value(prepared):
-        parts, y_spk, tcl_terms = prepared
-        if tcl_terms is None:
-            return _bank_matrix_value(network, loss, parts, y_spk)
-        frames, w_frames, A, y_cells = parts
-        B, T1, T2 = A.shape
-        n_tok = B * (T1 + T2)
-        e = network.forward_once(frames, weights=w_frames)
-        cells = _head_cells(loss, e[:n_tok], B, T1, T2)
-        c, y, w = _with_tcl_cells(loss, cells.flatten(-3),
-                                  y_cells.reshape(-1), A.reshape(-1),
-                                  e[n_tok:], tcl_terms)
-        return loss.from_cells(c, y, weights=w)
-
     def layout(prepared):
         (_, _, A, _), _, tcl_terms = prepared
         return ([("p", A.shape[1]), ("p", A.shape[2])]
                 + _tcl_side(tcl_terms) * 2)
 
-    return _on_mesh(mesh, _matrix_steps(network, optimizer, matrix_prepare,
-                                        matrix_value, layout), groups)
-
-
-# counter (abnet3_torch.profiling): the bytes a multimodal frame step
-# gathers from its modality tables, by the step run (train or eval)
-_MM_GATHER = {True: "train/mm_gather_bytes", False: "dev/mm_gather_bytes"}
+    return _on_mesh(mesh, _StepBody(
+        network, optimizer, functools.partial(_bank_matrix_value, network,
+                                              loss),
+        matrix_prepare, layout).steps, groups)
 
 
 def _counted_gathers(steps, tables):
@@ -1121,8 +1088,8 @@ def make_frame_train_step(network, loss, optimizer, tables,
             return [t[i1] for t in tables], [t[i2] for t in tables], y, w
         return table[i1], table[i2], y, w
 
-    steps = _gather_steps(network, loss, optimizer, gather,
-                          lambda: [("p", 1)])
+    steps = _frame_body(network, loss, optimizer, gather,
+                        lambda: [("p", 1)]).steps
     if multimodal:
         steps = _counted_gathers(steps, tables)
     return _on_mesh(mesh, steps,
@@ -1171,9 +1138,9 @@ def make_fused_train_step(network, loss, optimizer,
             return _align_and_flatten(f1s, f2s, n1s, n2s, f1d, f2d, n1d,
                                       n2d)
 
-        return _on_mesh(mesh, _gather_steps(
+        return _on_mesh(mesh, _frame_body(
             network, loss, optimizer, flatten,
-            lambda: [("s", lengths["s"]), ("d", lengths["d"])]),
+            lambda: [("s", lengths["s"]), ("d", lengths["d"])]).steps,
             groups)[0]
 
     def parts(f1s, f2s, n1s, n2s, f1d, f2d, n1d, n2d):
@@ -1193,69 +1160,45 @@ def make_fused_train_step(network, loss, optimizer,
         return [("s", A_s.shape[1]), ("s", A_s.shape[2]), ("d", T1d),
                 ("d", T2d)]
 
-    return _on_mesh(mesh, _matrix_steps(network, optimizer, parts, value,
-                                        layout), groups)[0]
+    return _on_mesh(mesh, _StepBody(network, optimizer, value, parts,
+                                    layout).steps, groups)[0]
 
 
-def _sampled_prepare(bank, sampled, align_different_words: bool,
-                     matrix: bool):
-    """The half of a sampled step that does not depend on the parameters
-    (run under ``torch.no_grad()``): the mixed pairs ``sampled`` = (ids1,
-    ids2, y[, y_spk]) of a :meth:`DevicePairSampler.sample` draw, each of
-    weight 1, aligned at the bank's full length: in matrix mode their
-    path masks (``dtw_path``), in gather mode their frame pairs
-    (``dtw_moves`` and the walk). Returns (mode, parts, y_spk or None)."""
-    ids1, ids2, y = sampled[:3]
-    y_spk = sampled[3] if len(sampled) > 3 else None
-    w = torch.ones_like(y)
-    if matrix:
-        return "matrix", _bank_align_matrix(bank, ids1, ids2, y, w,
-                                            align_different_words,
-                                            bank.max_len), y_spk
-    return "gather", _bank_align(bank, ids1, ids2, y, w,
-                                 align_different_words, bank.max_len,
-                                 y_spk), None
+def _sampled_calls(network, loss, optimizer, bank, sampler,
+                   align_different_words, steps_per_call, matrix_loss,
+                   extra_labels, mesh):
+    """(train_call, eval_call) of the sampled steps: each of a call's
+    ``steps_per_call`` steps draws one global batch of ``sampler`` (ids1,
+    ids2, y[, y_spk]) under ``torch.no_grad()``, appends each pair's
+    weight 1 and runs the mixed-pair step of :func:`make_pair_train_step`
+    on it at the bank's full length (every rank draws the global batch
+    and, on a mesh, runs its block). The batch must divide the 'data'
+    axis (the JAX package's assert), so nothing is padded."""
+    if steps_per_call < 1:
+        raise ValueError("steps_per_call must be >= 1")
+    if mesh is not None:
+        assert sampler.batch_size % mesh_shape(mesh)["data"] == 0, (
+            "sampler batch_size must divide the mesh 'data' axis so the "
+            "on-device batch shards evenly")
+    train_step, eval_step = make_pair_train_step(
+        network, loss, optimizer, bank, align_different_words,
+        max_frames=bank.max_len, matrix_loss=matrix_loss,
+        extra_labels=extra_labels, mesh=mesh)
 
+    @torch.no_grad()
+    def draw(generator):
+        sampled = tuple(sampler.sample(generator, with_speakers=extra_labels))
+        return sampled + (torch.ones_like(sampled[2]),)
 
-def _sampled_apply(network, loss, prep) -> torch.Tensor:
-    """The loss of a prepared sampled batch (the parameter-dependent half
-    of the sampled step), in the network's current mode."""
-    mode, parts, y_spk = prep
-    if mode == "matrix":
-        return _bank_matrix_value(network, loss, parts, y_spk)
-    return _frame_value(network, loss, *parts)
+    def train_call(generator: torch.Generator) -> torch.Tensor:
+        return torch.stack([train_step(*draw(generator))
+                            for _ in range(steps_per_call)]).mean()
 
+    def eval_call(generator: torch.Generator) -> torch.Tensor:
+        return torch.stack([eval_step(*draw(generator))
+                            for _ in range(steps_per_call)])
 
-def _sampled_sharding(mesh, sampler):
-    """(shard factory, layout) of the sampled steps on ``mesh``: every
-    rank draws the global batch from the same generator and keeps its
-    block of the pairs. The batch must divide the 'data' axis (the JAX
-    package's assert)."""
-    if mesh is None:
-        return None
-    n_data = mesh_shape(mesh)["data"]
-    assert sampler.batch_size % n_data == 0, (
-        "sampler batch_size must divide the mesh 'data' axis so the "
-        "on-device batch shards evenly")
-    return lambda: mesh_dist.Shard(mesh)
-
-
-def _sampled_draw(sampler, generator, extra_labels, new_shard):
-    """One global draw of ``sampler`` and, on a mesh, the shard holding
-    this rank's block of it (or None)."""
-    sampled = sampler.sample(generator, with_speakers=extra_labels)
-    if new_shard is None:
-        return sampled, None
-    shard = new_shard()
-    return tuple(shard.take("p", list(sampled),
-                            [0, 0, 1.0, 1.0][:len(sampled)])), shard
-
-
-def _sampled_layout(prep, T):
-    """The frame layout of a prepared sampled batch at bank length T."""
-    if prep[0] == "matrix":
-        return [("p", T), ("p", T)]
-    return [("p", 2 * T - 1)] * 2
+    return train_call, eval_call
 
 
 def make_sampled_train_step(network, loss, optimizer, bank, sampler,
@@ -1272,29 +1215,9 @@ def make_sampled_train_step(network, loss, optimizer, bank, sampler,
     linesearch reads its scalars). ``extra_labels`` trains the multitask
     family: the sampler also draws the speaker labels. With a ``mesh``
     every rank draws the global batch and runs its block of it."""
-    if steps_per_call < 1:
-        raise ValueError("steps_per_call must be >= 1")
-    matrix = use_matrix_loss(loss, matrix_loss, extra_labels)
-    new_shard = _sampled_sharding(mesh, sampler)
-
-    def train_call(generator: torch.Generator) -> torch.Tensor:
-        values = []
-        for _ in range(steps_per_call):
-            with torch.no_grad():
-                sampled, shard = _sampled_draw(sampler, generator,
-                                               extra_labels, new_shard)
-            with (mesh_dist.sharded(shard) if shard is not None
-                  else contextlib.nullcontext()):
-                with torch.no_grad():
-                    prep = _sampled_prepare(bank, sampled,
-                                            align_different_words, matrix)
-                with _frames(lambda: _sampled_layout(prep, bank.max_len)):
-                    values.append(_train_on(
-                        network, optimizer,
-                        lambda: _sampled_apply(network, loss, prep)))
-        return torch.stack(values).mean()
-
-    return train_call
+    return _sampled_calls(network, loss, optimizer, bank, sampler,
+                          align_different_words, steps_per_call, matrix_loss,
+                          extra_labels, mesh)[0]
 
 
 def make_sampled_eval_step(network, loss, bank, sampler,
@@ -1306,26 +1229,6 @@ def make_sampled_eval_step(network, loss, bank, sampler,
     generator)`` samples, aligns and evaluates ``steps_per_call`` fresh
     batches and returns their (steps_per_call,) losses as a device
     tensor (global losses on a ``mesh``)."""
-    if steps_per_call < 1:
-        raise ValueError("steps_per_call must be >= 1")
-    matrix = use_matrix_loss(loss, matrix_loss, extra_labels)
-    new_shard = _sampled_sharding(mesh, sampler)
-
-    @torch.no_grad()
-    def one(generator):
-        sampled, shard = _sampled_draw(sampler, generator, extra_labels,
-                                       new_shard)
-        if shard is None:
-            return _sampled_apply(network, loss, _sampled_prepare(
-                bank, sampled, align_different_words, matrix))
-        with mesh_dist.sharded(shard):
-            return mesh_dist.global_sum(_sampled_apply(
-                network, loss, _sampled_prepare(
-                    bank, sampled, align_different_words, matrix)))
-
-    @torch.no_grad()
-    def eval_call(generator: torch.Generator) -> torch.Tensor:
-        network.eval()
-        return torch.stack([one(generator) for _ in range(steps_per_call)])
-
-    return eval_call
+    return _sampled_calls(network, loss, None, bank, sampler,
+                          align_different_words, steps_per_call, matrix_loss,
+                          extra_labels, mesh)[1]

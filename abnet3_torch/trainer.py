@@ -40,6 +40,7 @@ from abnet3_torch.dataloader import (Batch, BankBatch, FrameBankBatch,
                                      MultimodalDataLoader, SplitBankBatch,
                                      prefetch_iterator)
 from abnet3_torch import dist as mesh_dist
+from abnet3_torch.parallel.mesh import _STEP, _UPLOAD
 from abnet3_torch.profiling import span, stage_trace, waited
 from abnet3_torch.utils import resolve_device
 from abnet3_torch.weights import (jax_param_slots, jax_param_tree,
@@ -48,11 +49,9 @@ from abnet3_torch.weights import (jax_param_slots, jax_param_tree,
 __all__ = ["TrainerBuilder", "TrainerSiamese", "TrainerSiameseMultitask",
            "MultimodalTrainer", "build_optimizer", "MetricsWriter"]
 
-# spans (abnet3_torch.profiling): the wait for a batch, by the split the
-# pass reads; a step and its upload, by the step run (train or eval)
+# span (abnet3_torch.profiling): the wait for a batch, by the split the
+# pass reads; a step's spans are the step table of parallel/mesh.py
 _WAIT = {True: "train/loader.wait", False: "dev/loader.wait"}
-_STEP = {True: "train/step", False: "dev/step"}
-_UPLOAD = {True: "train/step.upload", False: "dev/step.upload"}
 
 
 def build_optimizer(optimizer_type: str, params, lr: float,

@@ -117,10 +117,9 @@ def test_graph_rule(device, mesh, optimizer, frame_bank, graphed):
 
 @pytest.fixture
 def eager_code():
-    """The code of the matrix mode's eager (train_step, eval_step)."""
-    train, evaluate = pmesh._matrix_steps(None, None, lambda: None,
-                                          lambda parts: None)
-    return _code(train), _code(evaluate)
+    """The code of the one step body's eager (train_step, eval_step)."""
+    body = pmesh._StepBody(None, None, lambda parts: None)
+    return _code(body.train_step), _code(body.eval_step)
 
 
 @pytest.mark.parametrize("kind", ["siamese", "multitask"])
@@ -162,9 +161,9 @@ class _FrameLoader:
         return [self.table]
 
 
-def test_frame_steps_are_the_eager_ones(tmp_path):
+def test_frame_steps_are_the_eager_ones(tmp_path, eager_code):
     """``make_frame_train_step`` and the trainer's ``_frame_pair_step``
-    get the gather mode's and the frame-pair step's functions."""
+    get the step body's eager functions."""
     from abnet3_torch.dataloader import Batch, FrameBankBatch
     net = _network("siamese", "cpu")
     trainer = TrainerSiamese(network=net, loss=coscos2(),
@@ -175,17 +174,12 @@ def test_frame_steps_are_the_eager_ones(tmp_path):
                         np.ones(8, np.float32), np.ones(8, np.float32),
                         mode="train")
     train, evaluate = trainer._steps_for(fb)
-    gather = pmesh._gather_steps(net, coscos2(), trainer.optimizer,
-                                 lambda *a: a)
-    assert (_code(train), _code(evaluate)) == (_code(gather[0]),
-                                              _code(gather[1]))
+    assert (_code(train), _code(evaluate)) == eager_code
     x = np.random.RandomState(0).randn(6, D).astype(np.float32)
     trainer._frame_pair_step(Batch(torch.from_numpy(x),
                                    torch.from_numpy(x[::-1].copy()),
                                    torch.ones(6), torch.ones(6)), True)
-    pair = pmesh._frame_pair_steps(net, coscos2(), trainer.optimizer)
-    assert tuple(map(_code, trainer._step_fns["frames"])) == tuple(
-        map(_code, pair))
+    assert tuple(map(_code, trainer._step_fns["frames"])) == eager_code
 
 
 def _reader():

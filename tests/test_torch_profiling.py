@@ -359,3 +359,170 @@ def test_multimodal_epoch_spans_and_gather_counter(spans_on, tmp_path):
     row_bytes = 2 * (4 + 6) * 4
     assert counters["train/mm_gather_bytes"] == row_bytes * rows[True]
     assert counters["dev/mm_gather_bytes"] == row_bytes * rows[False]
+
+
+# -- the spans of each step factory -----------------------------------------
+
+class _Draws:
+    """A stand-in pair sampler: the same draw (ids1, ids2, y) each call."""
+
+    def __init__(self, draw):
+        self.draw = draw
+
+    def sample(self, generator, with_speakers=False):
+        return self.draw
+
+
+def _step_case(case):
+    """(train_step, eval_step or None, args) of one step factory at a
+    tiny size on the CPU; a sampled case's steps take a generator."""
+    from abnet3_torch import parallel
+    from abnet3_torch.loss import coscos2, weighted_loss_multi
+    from abnet3_torch.models.siamese import (SiameseMultitaskNetwork,
+                                             SiameseNetwork)
+    from abnet3_torch.ops.bank import TokenBank
+    from abnet3_torch.trainer import build_optimizer
+    rng = np.random.RandomState(0)
+    D = 4
+    bank = TokenBank({i: rng.randn(rng.randint(5, 13), D).astype(np.float32)
+                      for i in range(12)}, device="cpu")
+    multitask = case == "split-matrix-multitask"
+    if multitask:
+        net = SiameseMultitaskNetwork(
+            input_dim=D, num_hidden_layers_shared=1, num_hidden_layers_spk=1,
+            num_hidden_layers_phn=1, hidden_dim=8, output_dim=4,
+            p_dropout=0.0, activation_layer="sigmoid", device="cpu")
+        loss = weighted_loss_multi(loss_spk=coscos2(), loss_phn=coscos2(),
+                                   weight=0.5)
+    elif case == "frame-table-multimodal":
+        from abnet3_torch.integration import BiWeightedDeepLearnt
+        from abnet3_torch.models.multimodal import MultimodalSiameseNetwork
+        net = MultimodalSiameseNetwork(
+            integration_unit=BiWeightedDeepLearnt(net_params=[[8, 1],
+                                                              [8, 1]]),
+            pre_integration_net_params=[[4, 8, 8], [6, 8, 8]],
+            post_integration_net_params=[8, 4],
+            asynchronous_integration_index=1, activation_layer="sigmoid",
+            device="cpu")
+        loss = coscos2()
+    else:
+        net = SiameseNetwork(input_dim=D, num_hidden_layers=1, hidden_dim=8,
+                             output_dim=4, p_dropout=0.0,
+                             activation_layer="sigmoid", device="cpu")
+        loss = coscos2()
+    net.ensure_init(0)
+    opt = build_optimizer("adadelta", net.parameters(), 0.1)
+
+    def ids(n):
+        return torch.from_numpy(rng.randint(0, len(bank), n).astype(np.int64))
+
+    ones, signs = torch.ones(6), torch.tensor([1.0, -1.0] * 3)
+    matrix = "gather" not in case
+    if case.startswith("split"):
+        steps = parallel.make_split_pair_train_step(
+            net, loss, opt, bank, max_frames=16, matrix_loss=matrix,
+            extra_labels=multitask)
+        args = [ids(6), ids(6), ones, ids(6), ids(6), ones]
+        if multitask:
+            args += [signs, -signs]
+        return steps + (args,)
+    if case.startswith("mixed"):
+        tcl = case == "mixed-tcl"
+        frame_bank = torch.randn(30, D) if tcl else None
+        steps = parallel.make_pair_train_step(
+            net, loss, opt, bank, max_frames=16, matrix_loss=matrix,
+            frame_bank=frame_bank, tcl=0.3 if tcl else 0.0)
+        args = [ids(6), ids(6), signs, ones]
+        if tcl:
+            args += [torch.arange(4), torch.arange(4, 8), torch.ones(4),
+                     torch.ones(4)]
+        return steps + (args,)
+    if case.startswith("frame-table"):
+        tables = [torch.randn(30, D)]
+        if case == "frame-table-multimodal":
+            tables.append(torch.randn(30, 6))
+        steps = parallel.make_frame_train_step(
+            net, loss, opt, tables, multimodal=len(tables) > 1)
+        return steps + ([torch.arange(8), torch.arange(8, 16),
+                         torch.tensor([1.0, -1.0] * 4), torch.ones(8)],)
+    if case == "frame-pair":
+        from abnet3_torch.dataloader import Batch
+        steps = parallel.make_frame_pair_steps(net, loss, opt)
+        # a whole Batch, its y_spk None (a siamese batch)
+        return steps + (list(Batch(torch.randn(8, D), torch.randn(8, D),
+                                   torch.tensor([1.0, -1.0] * 4),
+                                   torch.ones(8))),)
+    if case.startswith("fused"):
+        def padded(n):
+            return torch.randn(n, 10, D), torch.randint(5, 11, (n,))
+        (f1s, n1s), (f2s, n2s) = padded(3), padded(3)
+        (f1d, n1d), (f2d, n2d) = padded(3), padded(3)
+        step = parallel.make_fused_train_step(net, loss, opt,
+                                              matrix_loss=matrix)
+        return step, None, [f1s, f2s, n1s, n2s, f1d, f2d, n1d, n2d]
+    sampler = _Draws((ids(6), ids(6), signs))
+    return (parallel.make_sampled_train_step(net, loss, opt, bank, sampler),
+            parallel.make_sampled_eval_step(net, loss, bank, sampler),
+            [torch.Generator()])
+
+
+def _opened(monkeypatch, run):
+    """The spans ``run()`` opens, in order, each as the path of the spans
+    open at its start (outermost first, joined by ' > ')."""
+    paths = []
+    enter = profiling._Span.__enter__
+
+    def recorded(self):
+        stack = getattr(profiling._local, "stack", None) or []
+        paths.append(" > ".join([s.name for s in stack] + [self.name]))
+        return enter(self)
+    with monkeypatch.context() as m:
+        m.setattr(profiling._Span, "__enter__", recorded)
+        run()
+    return paths
+
+
+_TRAIN = ["train/step.prepare", "train/step.forward", "train/step.backward",
+          "train/step.optimizer"]
+_EVAL = ["dev/step.prepare", "dev/step.forward"]
+
+
+def _modal(mode):
+    """A multimodal forward's spans: each side's pre-nets, then its unit."""
+    return [f"{mode}/step.forward > {mode}/mm.{part}" for _ in range(2)
+            for part in ("pre_0", "pre_1", "integration")]
+
+
+# the ordered spans of one train step and one eval step of each factory
+# (the train step's, the eval step's; a fused step has no eval step)
+STEP_SPANS = {
+    "split-matrix": (_TRAIN, _EVAL),
+    "split-matrix-multitask": (_TRAIN, _EVAL),
+    "split-gather": (_TRAIN, _EVAL),
+    "mixed-matrix": (_TRAIN, _EVAL),
+    "mixed-gather": (_TRAIN, _EVAL),
+    "mixed-tcl": (_TRAIN, _EVAL),
+    "frame-table": (_TRAIN, _EVAL),
+    "frame-table-multimodal": (
+        _TRAIN[:2] + _modal("train") + _TRAIN[2:],
+        _EVAL + _modal("dev")),
+    "frame-pair": (_TRAIN[1:], _EVAL[1:]),
+    "fused-matrix": (_TRAIN, None),
+    "fused-gather": (_TRAIN, None),
+    # the mixed-pair step's: a sampled step prepares (aligns) its draw
+    # under the prepare spans, and its eval step opens the forward's too
+    "sampled": (_TRAIN, _EVAL),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_SPANS))
+def test_step_spans_in_order(spans_on, monkeypatch, case):
+    """One train step and one eval step of each step factory open their
+    spans by name, order and nesting as written: the readers of
+    ``step_host_ms.train``, ``optimizer_ms.train``, ``premodal_ms.train``
+    and ``integration_ms.train`` and the breakdown's gaps read them."""
+    train, evaluate, args = _step_case(case)
+    want_train, want_eval = STEP_SPANS[case]
+    assert _opened(monkeypatch, lambda: train(*args)) == want_train
+    if want_eval is not None:
+        assert _opened(monkeypatch, lambda: evaluate(*args)) == want_eval

@@ -4,7 +4,7 @@ JAX package's, on the CPU:
 - given the ids JAX draws, one sampled train step's loss within rtol
   1e-4 of JAX's, and the params and batch-norm state after it (SGD, lr
   1: the gradient itself) within atol 1e-5, in matrix and gather modes;
-  the eval half (``_sampled_apply``) too;
+  the eval call (K = 1) on the same draw too;
 - an eval call returns its K losses;
 - the trainer's train and eval calls and steps equal JAX's, for K
   dividing and not dividing ``num_max_minibatches``; two runs with one
@@ -43,8 +43,7 @@ from abnet3_torch.loss import coscos2 as Tcoscos2, cosmargin as Tcosmargin
 from abnet3_torch.models.siamese import SiameseNetwork as TNet
 from abnet3_torch.ops.bank import TokenBank as TBank
 from abnet3_torch.ops.sampling import DevicePairSampler as TSampler
-from abnet3_torch.parallel.mesh import (_sampled_apply, _sampled_prepare,
-                                        make_sampled_eval_step,
+from abnet3_torch.parallel.mesh import (make_sampled_eval_step,
                                         make_sampled_train_step)
 from abnet3_torch.trainer import TrainerSiamese as TTrainer
 from abnet3_torch.trainer import build_optimizer
@@ -98,8 +97,8 @@ def _nets(bn=True):
 def test_sampled_step_matches_jax(inventory, matrix, loss_name):
     """One sampled train step (K=1) on the ids JAX draws inside its step:
     the loss within rtol 1e-4, params and batch-norm state after one SGD
-    step of lr 1 within atol 1e-5; the eval loss of the same prepared
-    batch within rtol 1e-4."""
+    step of lr 1 within atol 1e-5; the eval call's loss of the same draw
+    (K = 1) within rtol 1e-4 of JAX's prepared batch's."""
     descr, proba, feats = inventory
     jloss, tloss = {"coscos2": (Jcoscos2(), Tcoscos2()),
                     "cosmargin": (Jcosmargin(), Tcosmargin())}[loss_name]
@@ -115,11 +114,10 @@ def test_sampled_step_matches_jax(inventory, matrix, loss_name):
     j_prep = j_prepare(jbank.view(), js_sampler, _mesh(), False, matrix,
                        False, jax.random.split(rng)[0])
     e_j, _ = j_apply(jnet, jloss, j_prep, jp, js, None, False)
-    tnet.eval()
-    with torch.no_grad():
-        e_t = _sampled_apply(tnet, tloss,
-                             _sampled_prepare(tbank, tdraw, False, matrix))
-    np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-4)
+    e_t = make_sampled_eval_step(tnet, tloss, tbank, _Given(tdraw),
+                                 matrix_loss=matrix)(torch.Generator())
+    assert e_t.shape == (1,)
+    np.testing.assert_allclose(float(e_t[0]), float(e_j), rtol=1e-4)
 
     jstep = abnet3_tpu.parallel.make_sampled_train_step(
         jnet, jloss, optax.sgd(1.0), jbank, js_sampler, _mesh(),
