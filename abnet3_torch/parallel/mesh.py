@@ -78,10 +78,11 @@ runs on them. The two modes give the same loss (the visit counts of
 matrix mode are the batch-norm weights of the gathered rows).
 
 On the card, without a mesh or a tcl group and with an optimizer that
-takes no closure, the split step's matrix mode replays CUDA graphs
-(:class:`_GraphedSteps`): one per step kind and argument shapes, the
-body's prepare, forward and backward of a train step in one launch and
-its optimizer step eager; every other step runs as described above.
+takes no closure, the split step's matrix mode and the frame-table step
+replay CUDA graphs (:class:`_GraphedSteps`): one per step kind and
+argument shapes, the body's prepare, forward and backward of a train
+step in one launch and its optimizer step eager; every other step runs
+as described above.
 """
 
 from __future__ import annotations
@@ -94,6 +95,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from abnet3_torch import dist as mesh_dist
+from abnet3_torch.integration import MultitaskIntegration
 from abnet3_torch.nn import Tower
 from abnet3_torch.ops.cuda_dtw import LAUNCHERS
 from abnet3_torch.ops.dtw import (align_diff_batch, aligned_frame_pairs,
@@ -644,14 +646,24 @@ def make_frame_pair_steps(network, loss, optimizer, mesh=None):
 
 
 def _graphable(device, mesh, optimizer, frame_bank) -> bool:
-    """Whether the split step's matrix mode runs as CUDA graphs
-    (:class:`_GraphedSteps`): on the card, without a mesh (its padding and
-    collectives stay eager), with an optimizer that takes no closure
-    (LBFGS evaluates the loss again inside its step) and without a tcl
-    group."""
+    """Whether the split step's matrix mode or the frame-table step runs
+    as CUDA graphs (:class:`_GraphedSteps`): on the card, without a mesh
+    (its padding and collectives stay eager), with an optimizer that takes
+    no closure (LBFGS evaluates the loss again inside its step) and
+    without a tcl group."""
     return (torch.device(device).type == "cuda" and mesh is None
             and not getattr(optimizer, "takes_closure", False)
             and frame_bank is None)
+
+
+def _draws_masks(network) -> bool:
+    """Whether a train step of ``network`` draws from the network's own
+    generator, which a graph of the step must then advance on each
+    replay: the dropout masks of a ``Tower`` with dropout, the modality
+    masks of a ``MultitaskIntegration`` unit."""
+    return any((isinstance(m, Tower) and m.spec.p_dropout > 0)
+               or isinstance(m, MultitaskIntegration)
+               for m in network.modules())
 
 
 class _StepGraph(NamedTuple):
@@ -693,6 +705,11 @@ class _GraphedSteps:
         # the side stream of the warm-ups and captures
         self.stream = torch.cuda.Stream()
 
+    @property
+    def steps(self):
+        """(train_step, eval_step)."""
+        return self.train_step, self.eval_step
+
     def train_step(self, *args):
         return self._step(True, args)
 
@@ -725,10 +742,7 @@ class _GraphedSteps:
         params = []
         if training:
             generator = getattr(body.network, "_generator", None)
-            if generator is not None and any(
-                    isinstance(m, Tower) and m.spec.p_dropout > 0
-                    for m in body.network.modules()):
-                # the dropout masks come from the network's own generator
+            if generator is not None and _draws_masks(body.network):
                 graph.register_generator_state(generator)
             params = [p for g in body.optimizer.param_groups
                       for p in g["params"]]
@@ -892,8 +906,7 @@ def make_split_pair_train_step(network, loss, optimizer, bank,
 
     body = _StepBody(network, optimizer, matrix_value, matrix_parts, layout)
     if _graphable(bank.bank.device, mesh, optimizer, frame_bank):
-        graphed = _GraphedSteps(body)
-        return graphed.train_step, graphed.eval_step
+        return _GraphedSteps(body).steps
     return _on_mesh(mesh, body.steps, groups)
 
 
@@ -1078,7 +1091,10 @@ def make_frame_train_step(network, loss, optimizer, tables,
     lists, even of one modality), else the one table's rows. With a
     ``mesh`` each rank runs its block of the rows, padded with weight
     0. A multimodal step counts the bytes it gathers (``train/`` or
-    ``dev/mm_gather_bytes``)."""
+    ``dev/mm_gather_bytes``), outside the graph where there is one. On
+    the card, without a mesh and with an optimizer that takes no closure,
+    the steps replay CUDA graphs (:class:`_GraphedSteps`): the loaders'
+    batches have one shape a mode."""
     tables = tuple(tables)
     if not multimodal:
         (table,) = tables
@@ -1088,8 +1104,10 @@ def make_frame_train_step(network, loss, optimizer, tables,
             return [t[i1] for t in tables], [t[i2] for t in tables], y, w
         return table[i1], table[i2], y, w
 
-    steps = _frame_body(network, loss, optimizer, gather,
-                        lambda: [("p", 1)]).steps
+    body = _frame_body(network, loss, optimizer, gather, lambda: [("p", 1)])
+    steps = (_GraphedSteps(body)
+             if _graphable(tables[0].device, mesh, optimizer, None)
+             else body).steps
     if multimodal:
         steps = _counted_gathers(steps, tables)
     return _on_mesh(mesh, steps,
