@@ -27,7 +27,10 @@ non-empty cells.
 
 Every DTW distance on the card takes the CUDA kernel and every one on the
 CPU its plain version; the matmuls run in full float32 whatever the
-global TF32 setting (:func:`full_float32`).
+global TF32 setting (:func:`full_float32`). On the card without a mesh
+split, a DTW tile's anchor rows replay one CUDA graph each
+(:class:`_TileRows`): the same kernels on the same shapes as the eager
+row loop, so the same distances bit for bit.
 
 With a ``mesh`` (one process per GPU) the pair batches and the tile rows
 are split over the mesh's 'data' axis: each rank runs the stats kernel on
@@ -48,12 +51,13 @@ import numpy as np
 import torch
 
 from abnet3_torch.eval import abx_device
+from abnet3_torch.ops.cuda_dtw import LAUNCHERS
 from abnet3_torch.ops.dtw import (anchor_angular_distance_rows,
                                   anchor_kl_distance_rows, dtw_path_stats,
                                   dtw_path_stats_rows,
                                   pairwise_angular_distance,
                                   pairwise_kl_distance, unit_frames)
-from abnet3_torch.profiling import span
+from abnet3_torch.profiling import count, span
 from abnet3_torch.utils import full_float32
 
 __all__ = ["make_pair_distance_fn", "distance_matrix", "abx_error",
@@ -232,37 +236,170 @@ def _pairs_distance_matrix(bank, distance, batch_size, max_frames,
 _TILE_MIN_TOKENS = 2048
 
 
+def _anchor_row(fi: torch.Tensor, n1: torch.Tensor, cols, nj: torch.Tensor,
+                kl: bool, out: torch.Tensor) -> None:
+    """One anchor's distances to a tile's column tokens into ``out``
+    (block,): the anchor-form distance rows (Tc, block, Tc) from one
+    matmul, then ONE stats-kernel launch on them, read in place. ``fi``
+    (Tc, d) is the anchor's frames, ``n1`` (block,) its length, ``cols``
+    the columns' frames (dtw_kl) or their :func:`unit_frames` (dtw_cos),
+    ``nj`` their lengths."""
+    rows = (anchor_kl_distance_rows(fi, cols) if kl
+            else anchor_angular_distance_rows(fi, None, y_unit=cols))
+    psum, plen = dtw_path_stats_rows(rows, n1, nj)
+    torch.div(psum, torch.clamp(plen, min=1.0), out=out)
+
+
+def _rows_graphed(device: torch.device, n_rows: int, block: int) -> bool:
+    """Whether a DTW tile's anchor rows replay a CUDA graph
+    (:class:`_TileRows`): on the card, where one process computes every
+    row of the tile (a mesh's 'data' split stays eager)."""
+    return device.type == "cuda" and n_rows == block
+
+
+class _TileRows:
+    """A DTW tile's anchor rows as one body on static device buffers.
+
+    :meth:`load` puts a tile's anchors (frames, lengths) and columns
+    (dtw_kl: frames; dtw_cos: unit frames and zero mask; lengths) into
+    the buffers and sets the row counter ``r`` (a device scalar) to 0;
+    each :meth:`body` then scores anchor ``r`` with :func:`_anchor_row`,
+    writes it to ``out[r]`` and advances ``r``. No input comes from the
+    host, so on the card :meth:`run` captures the body once as a CUDA
+    graph and replays it for every anchor: the first row of the first
+    tile is the body's eager warm-up on the capture's side stream, the
+    capture is ``thread_local`` (as the train steps' graphs,
+    :class:`abnet3_torch.parallel.mesh._GraphedSteps`). A replay adds
+    the kernel launches that the capture held to the wrappers' counts."""
+
+    def __init__(self, distance: str, Tc: int, block: int, dim: int,
+                 device):
+        self.kl = distance == "dtw_kl"
+        self.block = block
+        f32 = dict(dtype=torch.float32, device=device)
+        self.anchors = torch.empty((block, Tc, dim), **f32)
+        self.n1 = torch.empty(block, dtype=torch.int32, device=device)
+        self.cols = (torch.empty((block, Tc, dim), **f32) if self.kl else
+                     (torch.empty((block, Tc, dim), dtype=torch.float64,
+                                  device=device),
+                      torch.empty((block, Tc), dtype=torch.bool,
+                                  device=device)))
+        self.nj = torch.empty(block, dtype=torch.int32, device=device)
+        self.r = torch.zeros(1, dtype=torch.int64, device=device)
+        self.row = torch.empty(block, **f32)
+        self.out = torch.empty((block, block), **f32)
+        self.stream = self.graph = None
+        self.launches: List[int] = []
+
+    def load(self, bank, ids_i: np.ndarray, ids_j: np.ndarray) -> None:
+        device, Tc = self.out.device, self.anchors.shape[1]
+        fi, n1 = bank.take(_ids(ids_i, device), Tc)
+        fj, nj = bank.take(_ids(ids_j, device), Tc)
+        self.anchors.copy_(fi)
+        self.n1.copy_(n1)
+        self.nj.copy_(nj)
+        if self.kl:
+            self.cols.copy_(fj)
+        else:
+            for buf, v in zip(self.cols, unit_frames(fj)):
+                buf.copy_(v)
+        self.r.zero_()
+
+    def body(self) -> None:
+        r = self.r
+        _anchor_row(self.anchors.index_select(0, r)[0],
+                    self.n1.index_select(0, r).expand(self.block),
+                    self.cols, self.nj, self.kl, self.row)
+        self.out.index_copy_(0, r, self.row[None])
+        r.add_(1)
+
+    def run(self, bank, ids_i: np.ndarray, ids_j: np.ndarray
+            ) -> torch.Tensor:
+        """The tile's (block, block) distances, one replay a row."""
+        self.load(bank, ids_i, ids_j)
+        for r in range(self.block):
+            if self.stream is not None and self.graph is None:
+                self._capture()
+            with span("abx.row", r):
+                if self.stream is None:
+                    self._warm_up()
+                else:
+                    self.graph.replay()
+                    count("abx/row_replays", 1)
+                    for f, n in zip(LAUNCHERS, self.launches):
+                        f.launches += n
+        return self.out.clone()
+
+    def _warm_up(self) -> None:
+        main = torch.cuda.current_stream(self.out.device)
+        self.stream = torch.cuda.Stream(self.out.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            self.body()
+        main.wait_stream(self.stream)
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = [f.launches for f in LAUNCHERS]
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            self.body()
+        # the capture launched nothing; each replay counts its launches
+        self.launches = [f.launches - n for f, n in zip(LAUNCHERS, before)]
+        for f, n in zip(LAUNCHERS, before):
+            f.launches = n
+        self.graph = graph
+
+
+# the tile rows of the last (device, distance, Tc, block, d) graphed:
+# distance_matrix runs once an evaluation on a new bank, and the graph,
+# which reads only its own buffers, outlives the call, so later
+# evaluations of the same shapes replay without a capture; one key at a
+# time bounds the card memory that the buffers and the graph's pool hold
+# (and, the buffers being shared, one distance_matrix runs at a time)
+_GRAPHED_ROWS: Dict[tuple, _TileRows] = {}
+
+
+def _graphed_rows(distance: str, Tc: int, block: int, dim: int,
+                  device) -> _TileRows:
+    key = (device, distance, Tc, block, dim)
+    if key not in _GRAPHED_ROWS:
+        _GRAPHED_ROWS.clear()
+        _GRAPHED_ROWS[key] = _TileRows(distance, Tc, block, dim, device)
+    return _GRAPHED_ROWS[key]
+
+
 def _dtw_tile_fn(bank, distance: str, T: int, block: int,
                  n_rows: Optional[int] = None):
     """(ids_i, ids_j) host id arrays of one tile -> its (block, block)
     float32 distances on the card, or with ``n_rows`` the (n_rows, block)
     distances of ``n_rows`` anchors (one rank's rows on a mesh). Each row
-    scores one anchor against the tile's column tokens: the anchor-form
-    distance rows (T, block, T) from one matmul, then ONE stats-kernel
-    launch on them, read in place."""
+    scores one anchor against the tile's column tokens
+    (:func:`_anchor_row`); where :func:`_rows_graphed` holds, each row is
+    a replay of :class:`_TileRows`' graph."""
     device = bank.bank.device
     Tc = _frames(bank, T)
     kl = distance == "dtw_kl"
-    n1 = torch.empty(block, dtype=torch.int32, device=device)
     n_rows = block if n_rows is None else n_rows
+    if _rows_graphed(device, n_rows, block):
+        rows = _graphed_rows(distance, Tc, block, bank.dim, device)
+
+        def graphed(ids_i: np.ndarray, ids_j: np.ndarray) -> torch.Tensor:
+            with torch.cuda.device(device):
+                return rows.run(bank, ids_i, ids_j)
+        return graphed
+    n1 = torch.empty(block, dtype=torch.int32, device=device)
 
     def tile(ids_i: np.ndarray, ids_j: np.ndarray) -> torch.Tensor:
         fj, nj = bank.take(_ids(ids_j, device), T)
         nj = nj.to(torch.int32).contiguous()
-        y_unit = None if kl else unit_frames(fj)
+        cols = fj if kl else unit_frames(fj)
         out = torch.empty((n_rows, block), dtype=torch.float32,
                           device=device)
         for r, i in enumerate(ids_i.tolist()):
             with span("abx.row", r):
-                fi = bank.bank[i, :Tc]
-                if kl:
-                    rows = anchor_kl_distance_rows(fi, fj)
-                else:
-                    rows = anchor_angular_distance_rows(fi, fj,
-                                                        y_unit=y_unit)
                 n1.fill_(min(int(bank.lengths_host[i]), Tc))
-                psum, plen = dtw_path_stats_rows(rows, n1, nj)
-                torch.div(psum, torch.clamp(plen, min=1.0), out=out[r])
+                _anchor_row(bank.bank[i, :Tc], n1, cols, nj, kl, out[r])
         return out
 
     return tile
